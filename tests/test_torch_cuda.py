@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain PyTorch twins on the card,
+at edge shapes the smoke run (chip_smoke.py, main-path shapes) does not
+reach: ragged N (N % 4 != 0), odd row counts, head_dim 16 to 128, per-row
+positions, bf16 caches, tile boundaries. Marked ``cuda``: each test skips
+where there is no card. On a machine with one, run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest imports JAX, which that machine
+need not have; this file imports neither JAX nor the JAX package.)
+
+Tolerances: f32 inputs 1e-4 * max|plain| (the kernel and its twin sum in
+other orders); bf16 inputs 2e-2 * max|plain| (one bf16 rounding of
+outputs near the max, plus rounding of intermediates)."""
+
+import pytest
+import torch
+
+from tpu_llm_torch.ops import flash_attention as FA
+from tpu_llm_torch.quant.qmatmul import qmatmul, qmatmul_plain
+from tpu_llm_torch.quant.qtensor import QTensor
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda.py")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+def _close(got, want, bf16: bool):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    tol = (2e-2 if bf16 else 1e-4) * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+def _qt(g, kind, K, N):
+    if kind == "q4_0":
+        q = torch.randint(0, 256, (K // 2, N), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    else:
+        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+    s = torch.rand((K // 32, N), generator=g, device="cuda") * 0.009 + 0.001
+    return QTensor(q.contiguous(), s.contiguous(), kind)
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("K,N", [(32, 1), (64, 130), (96, 33), (2048, 2560),
+                                 (5632, 2048)])
+@pytest.mark.parametrize("rows", [1, 3, 8, 37])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qmatmul_kernel_matches_plain(gen, kind, K, N, rows, xdt):
+    w = _qt(gen, kind, K, N)
+    x = torch.randn((rows, K), generator=gen, device="cuda").to(xdt)
+    launches = qmatmul.launches
+    got = qmatmul(x, w)
+    assert qmatmul.launches == launches + 1 and got.dtype == xdt
+    _close(got, qmatmul_plain(x, w), xdt == torch.bfloat16)
+    f32_out = qmatmul(x, w, out_dtype=torch.float32)
+    _close(f32_out, qmatmul_plain(x, w, out_dtype=torch.float32), False)
+
+
+def test_qmatmul_kernel_refuses_bad_shapes(gen):
+    w = _qt(gen, "q4_0", 64, 16)
+    with pytest.raises(ValueError):
+        qmatmul(torch.zeros((1, 32), device="cuda"), w)
+    with pytest.raises(ValueError):
+        qmatmul(torch.zeros((1, 64)), w)           # x on the CPU, weight on the card
+
+
+@pytest.mark.parametrize("D,H,Hkv", [(16, 4, 2), (64, 32, 4), (128, 8, 8), (48, 6, 2)])
+@pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32", "bf16q", "bf16"])
+def test_decode_kernels_match_plain(gen, D, H, Hkv, qdt, cdt):
+    B, S = 3, 200
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(qdt)
+    kc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(cdt)
+    vc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(cdt)
+    k_cur = torch.randn((B, 1, Hkv * D), generator=gen, device="cuda").to(qdt)
+    v_cur = torch.randn((B, 1, Hkv * D), generator=gen, device="cuda").to(qdt)
+    bf16 = qdt == torch.bfloat16
+    for pos in ([0, 63, 199], [64, 65, 127], [5, 5, 5]):
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        _close(FA.flash_decode_attention(q, kc, vc, p),
+               FA.flash_decode_attention_plain(q, kc, vc, p), bf16)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got, _, _ = FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)
+        want, _, _ = FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)
+        _close(got, want, bf16)
+        assert torch.equal(k1, k2) and torch.equal(v1, v2)   # row pos only
+
+
+@pytest.mark.parametrize("D,H,Hkv", [(16, 4, 2), (64, 32, 4), (128, 8, 2)])
+@pytest.mark.parametrize("T,S,offset", [(17, 64, 0), (64, 64, 0), (100, 256, 7),
+                                        (130, 200, 70)])
+@pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32", "bf16q", "bf16"])
+def test_prefill_kernel_matches_plain(gen, D, H, Hkv, T, S, offset, qdt, cdt):
+    B = 2
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(qdt)
+    kc = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(cdt)
+    vc = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(cdt)
+    _close(FA.flash_gqa_attention(q, kc, vc, offset),
+           FA.flash_gqa_attention_plain(q, kc, vc, offset), qdt == torch.bfloat16)
+
+
+def test_attention_kernels_refuse_unsupported_head_dim(gen):
+    q = torch.zeros((1, 1, 4, 8), device="cuda")
+    kc = torch.zeros((1, 16, 16), device="cuda")
+    p = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_decode_attention(q, kc, kc, p)
+
+
+def test_model_logits_card_match_cpu(gen):
+    """A small q4_0 llama, decode steps on the card (kernels) and on the
+    CPU (plain twins), f32: the same logits."""
+    from tpu_llm_torch.config import LlamaConfig
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.quant.convert_params import quantize_llama_params
+
+    cfg = LlamaConfig(dim=128, hidden_dim=96, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=100, seq_len=64)
+    g = torch.Generator().manual_seed(1)
+    s = lambda *shape: torch.randn(shape, generator=g) * 0.08  # noqa: E731
+    dense = {"tok_emb": s(100, 128), "final_norm": 1 + 0.1 * s(128), "wcls": s(128, 100),
+             "layers": [{"attn_norm": 1 + 0.1 * s(128), "ffn_norm": 1 + 0.1 * s(128),
+                         "wq": s(128, 128), "wk": s(128, 64), "wv": s(128, 64),
+                         "wo": s(128, 128), "w1": s(128, 96), "w3": s(128, 96),
+                         "w2": s(96, 128)} for _ in range(2)]}
+    cpu = quantize_llama_params(dense, "q4_0", fuse=True)
+    card = quantize_llama_params(
+        {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in dense.items()
+         if k != "layers"} | {"layers": [{k: v.cuda() for k, v in lp.items()}
+                                         for lp in dense["layers"]]},
+        "q4_0", fuse=True)
+    for defer in (False, True):
+        cc = M.init_cache(cfg, 1, 64)
+        gc = M.init_cache(cfg, 1, 64, device="cuda")
+        for pos, tok in enumerate([1, 7, 42, 99, 3]):
+            want, cc = M.decode_step(cpu, cfg, torch.tensor([tok]), cc, pos, defer)
+            got, gc = M.decode_step(card, cfg, torch.tensor([tok], device="cuda"),
+                                    gc, pos, defer)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

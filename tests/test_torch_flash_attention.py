@@ -1,0 +1,128 @@
+"""The plain twins of the port's attention kernels (K2 decode, K3 fused
+decode + append, K4 prefill) against the Pallas kernels they replace
+(tpu_llm.ops.flash_attention, interpret mode), and the port's einsum
+attention against tpu_llm.ops.attention. f32, tolerance 2e-5 as in
+tests/test_flash_attention.py."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from tpu_llm.ops import attention as jatt
+from tpu_llm.ops import flash_attention as jfa
+from tpu_llm_torch.ops import attention as tatt
+from tpu_llm_torch.ops import flash_attention as tfa
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("pos", [0, 3, 77, 255])
+def test_decode_plain_matches_pallas(pos):
+    rng = np.random.default_rng(pos)
+    B, S, H, Hkv, D = 2, 256, 8, 2, 64
+    q, k, v = _rand(rng, B, 1, H, D), _rand(rng, B, S, Hkv, D), _rand(rng, B, S, Hkv, D)
+    positions = np.asarray([pos, max(pos - 2, 0)], np.int32)
+    want = jfa.flash_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(positions), chunk=64, interpret=True)
+    got = tfa.flash_decode_attention(_t(q), _t(k).reshape(B, S, Hkv * D),
+                                     _t(v).reshape(B, S, Hkv * D), _t(positions))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert tfa.flash_decode_attention.launches == 0
+
+
+@pytest.mark.parametrize("pos", [0, 5, 8, 63, 190])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_fused_plain_matches_pallas(pos, batch):
+    rng = np.random.default_rng(1000 + pos)
+    B, S, H, Hkv, D = batch, 256, 8, 2, 64
+    q = _rand(rng, B, 1, H, D)
+    kc, vc = _rand(rng, B, S, Hkv * D), _rand(rng, B, S, Hkv * D)
+    k_cur, v_cur = _rand(rng, B, 1, Hkv * D), _rand(rng, B, 1, Hkv * D)
+    positions = np.asarray([pos], np.int32)
+    want, k_new, v_new = jfa.flash_decode_fused(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(k_cur),
+        jnp.asarray(v_cur), jnp.asarray(positions), chunk=64, interpret=True)
+    tk, tv = _t(kc), _t(vc)
+    got, tk2, tv2 = tfa.flash_decode_fused(_t(q), tk, tv, _t(k_cur), _t(v_cur),
+                                           _t(positions))
+    assert tk2 is tk and tv2 is tv               # appended in place
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # visible rows equal the reference's appended planes exactly; every
+    # other row is untouched
+    np.testing.assert_array_equal(tk.numpy()[:, : pos + 1], np.asarray(k_new)[:, : pos + 1])
+    np.testing.assert_array_equal(tv.numpy()[:, : pos + 1], np.asarray(v_new)[:, : pos + 1])
+    np.testing.assert_array_equal(tk.numpy()[:, pos + 1:], kc[:, pos + 1:])
+    np.testing.assert_array_equal(tv.numpy()[:, pos + 1:], vc[:, pos + 1:])
+
+
+@pytest.mark.parametrize("offset", [0, 7, 30])
+def test_prefill_plain_matches_pallas(offset):
+    rng = np.random.default_rng(offset)
+    B, T, S, H, Hkv, D = 2, 32, 64, 4, 2, 16
+    q, k, v = _rand(rng, B, T, H, D), _rand(rng, B, S, Hkv, D), _rand(rng, B, S, Hkv, D)
+    want = jfa.flash_gqa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.int32(offset), block_q=16, block_k=16,
+                                   interpret=True)
+    got = tfa.flash_gqa_attention(_t(q), _t(k), _t(v), offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("T,positions", [(1, "row"), (5, "shared"), (5, "per_batch")])
+def test_gqa_attention_matches_jax(T, positions):
+    rng = np.random.default_rng(T)
+    B, S, H, Hkv, D = 2, 32, 4, 2, 16
+    q, kc, vc = _rand(rng, B, T, H, D), _rand(rng, B, S, Hkv * D), _rand(rng, B, S, Hkv * D)
+    if positions == "row":
+        pos = np.asarray([[9], [20]], np.int32)
+    elif positions == "shared":
+        pos = np.arange(11, 11 + T, dtype=np.int32)
+    else:
+        pos = np.stack([np.arange(3, 3 + T), np.arange(20, 20 + T)]).astype(np.int32)
+    want = jatt.gqa_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                              jnp.asarray(pos))
+    got = tatt.gqa_attention(_t(q), _t(kc), _t(vc), _t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("pos", [0, 6, 31])
+def test_gqa_attention_deferred_matches_jax(pos):
+    rng = np.random.default_rng(50 + pos)
+    B, S, H, Hkv, D = 2, 32, 4, 2, 16
+    q, kc, vc = _rand(rng, B, 1, H, D), _rand(rng, B, S, Hkv * D), _rand(rng, B, S, Hkv * D)
+    k_cur, v_cur = _rand(rng, B, 1, Hkv * D), _rand(rng, B, 1, Hkv * D)
+    p = np.asarray([pos], np.int32)
+    want = jatt.gqa_attention_deferred(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                       jnp.asarray(k_cur), jnp.asarray(v_cur),
+                                       jnp.asarray(p))
+    got = tatt.gqa_attention_deferred(_t(q), _t(kc), _t(vc), _t(k_cur), _t(v_cur), _t(p))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_update_kv_cache_matches_jax():
+    rng = np.random.default_rng(3)
+    B, S, Hkv, D, T = 2, 16, 2, 8, 3
+    kc, vc = _rand(rng, B, S, Hkv * D), _rand(rng, B, S, Hkv * D)
+    kn, vn = _rand(rng, B, T, Hkv, D), _rand(rng, B, T, Hkv, D)
+    jk, jv = jatt.update_kv_cache(jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kn),
+                                  jnp.asarray(vn), jnp.int32(5))
+    tk, tv = _t(kc), _t(vc)
+    tatt.update_kv_cache(tk, tv, _t(kn), _t(vn), 5)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_wrappers_refuse_mixed_devices():
+    q = torch.zeros(1, 1, 4, 16)
+    kc = torch.zeros(1, 8, 32, device="meta")
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        tfa.flash_decode_attention(q, kc, kc, torch.zeros(1, dtype=torch.int32))

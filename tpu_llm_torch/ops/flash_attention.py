@@ -1,0 +1,193 @@
+"""Flash (online-softmax) GQA attention: wrappers of the CUDA kernels in
+``csrc/flash_attention.cu`` and their plain PyTorch twins.
+
+Three kernels, each replacing a Pallas kernel of
+``tpu_llm/ops/flash_attention.py``:
+
+- ``flash_decode_attention`` (K2, ``_decode_kernel``): one query a batch
+  row against the flat (B, S, Hkv*D) cache, keys s <= pos[b]. Every
+  non-deferred decode step (the ``llm`` CLI) runs it.
+- ``flash_decode_fused`` (K3, ``_decode_fused_kernel``): the same
+  attention against the STALE cache (s < pos) plus this step's
+  k_cur/v_cur as key pos, and the store of k_cur/v_cur at row pos — in
+  place, where the JAX kernel returns aliased planes.
+  ``decode_step(defer_kv=True)`` runs it.
+- ``flash_gqa_attention`` (K4, ``_flash_kernel``): causal prefill, query t
+  sees s <= offset + t. Prefill takes it when the einsum path's scores
+  would pass 64 MB (models/llama._attend).
+
+Each wrapper takes its plain twin for CPU tensors and launches its kernel
+for CUDA tensors, or raises; ``<wrapper>.launches`` counts the kernel
+launches. The kernels take head_dim a multiple of 16 up to 128.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_llm_torch.kernels import build
+from tpu_llm_torch.ops.attention import gqa_attention, gqa_attention_deferred
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    dev = {t.device.type for t in ts}
+    if dev == {"cpu"}:
+        return True
+    if dev == {"cuda"}:
+        return False
+    raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {dev}")
+
+
+def _check_kernel_args(q, k_cache, v_cache):
+    D = q.shape[-1]
+    if D % 16 or not 16 <= D <= 128:
+        raise ValueError(f"head_dim {D}: the attention kernels take a multiple "
+                         f"of 16 up to 128")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {q.dtype}: the kernels take f32 or bf16")
+    if k_cache.dtype != v_cache.dtype or k_cache.dtype not in (torch.float32,
+                                                               torch.bfloat16):
+        raise ValueError(f"cache dtypes {k_cache.dtype}/{v_cache.dtype}: the "
+                         f"kernels take matching f32 or bf16 planes")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("cache planes must be contiguous")
+    hkv_d = k_cache[0, 0].numel()
+    if hkv_d % D or q.shape[2] % (hkv_d // D):
+        raise ValueError(f"cache row width {hkv_d} does not hold whole kv "
+                         f"heads of {q.shape[2]} query heads of size {D}")
+
+
+def _row_positions(positions: torch.Tensor, B: int, device) -> torch.Tensor:
+    """positions (1,), (B,) or (B, 1) -> (B,) int32 on ``device``."""
+    pos = positions.reshape(-1).to(device=device, dtype=torch.int32)
+    if pos.numel() == 1 and B > 1:
+        pos = pos.expand(B)
+    if pos.numel() != B:
+        raise ValueError(f"positions {tuple(positions.shape)} for batch {B}")
+    return pos.contiguous()
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+# -- K2 ----------------------------------------------------------------------
+
+def flash_decode_attention_plain(q, k_cache, v_cache, positions):
+    B = q.shape[0]
+    pos = _row_positions(positions, B, q.device)
+    return gqa_attention(q, k_cache, v_cache, pos.reshape(B, 1))
+
+
+def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           positions: torch.Tensor) -> torch.Tensor:
+    """q (B, 1, H, D); caches (B, S, Hkv*D) or (B, S, Hkv, D); positions
+    (1,), (B,) or (B, 1). Returns (B, 1, H, D) in q's dtype."""
+    if _on_cpu(q, k_cache, v_cache):
+        return flash_decode_attention_plain(q, k_cache, v_cache, positions)
+    _check_kernel_args(q, k_cache, v_cache)
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError(f"decode attention takes one query a row, got T={T}")
+    S = k_cache.shape[1]
+    kc = k_cache.reshape(B, S, -1)
+    vc = v_cache.reshape(B, S, -1)
+    Hkv = kc.shape[2] // D
+    q = q.contiguous()
+    pos = _row_positions(positions, B, q.device)
+    out = torch.empty_like(q)
+    code = build.lib().tlt_flash_decode(
+        q.data_ptr(), _is_bf16(q), kc.data_ptr(), vc.data_ptr(), _is_bf16(kc),
+        None, None, pos.data_ptr(), out.data_ptr(), B, H, Hkv, D, S,
+        1.0 / D ** 0.5, build.stream_ptr(q.device))
+    build.check(code, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return out
+
+
+flash_decode_attention.launches = 0
+
+
+# -- K3 ----------------------------------------------------------------------
+
+def flash_decode_fused_plain(q, k_cache, v_cache, k_cur, v_cur, positions):
+    B, S = q.shape[0], k_cache.shape[1]
+    pos = _row_positions(positions, B, q.device)
+    k_cur = k_cur.to(k_cache.dtype)   # the current token enters in cache dtype
+    v_cur = v_cur.to(v_cache.dtype)
+    attn = gqa_attention_deferred(q, k_cache, v_cache, k_cur, v_cur,
+                                  pos.reshape(B, 1))
+    rows = torch.arange(B, device=q.device)
+    slot = torch.clamp(pos.long(), max=S - 1)
+    k_cache[rows, slot] = k_cur.reshape(B, -1)
+    v_cache[rows, slot] = v_cur.reshape(B, -1)
+    return attn, k_cache, v_cache
+
+
+def flash_decode_fused(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, k_cur: torch.Tensor,
+                       v_cur: torch.Tensor, positions: torch.Tensor):
+    """Decode attention against the STALE flat cache (B, S, Hkv*D) plus
+    this step's k_cur/v_cur (B, 1, Hkv*D), which are stored at row pos IN
+    PLACE. k_cur/v_cur are cast to the cache dtype first, so a bf16 cache
+    rounds the current token before it enters the softmax. Returns
+    (attn (B, 1, H, D), k_cache, v_cache)."""
+    if _on_cpu(q, k_cache, v_cache, k_cur, v_cur):
+        return flash_decode_fused_plain(q, k_cache, v_cache, k_cur, v_cur,
+                                        positions)
+    _check_kernel_args(q, k_cache, v_cache)
+    B, T, H, D = q.shape
+    if T != 1 or k_cache.dim() != 3:
+        raise ValueError("fused decode takes one query a row and flat caches")
+    S, HkvD = k_cache.shape[1], k_cache.shape[2]
+    q = q.contiguous()
+    kcur = k_cur.to(k_cache.dtype).reshape(B, HkvD).contiguous()
+    vcur = v_cur.to(v_cache.dtype).reshape(B, HkvD).contiguous()
+    pos = _row_positions(positions, B, q.device)
+    out = torch.empty_like(q)
+    code = build.lib().tlt_flash_decode(
+        q.data_ptr(), _is_bf16(q), k_cache.data_ptr(), v_cache.data_ptr(),
+        _is_bf16(k_cache), kcur.data_ptr(), vcur.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, H, HkvD // D, D, S, 1.0 / D ** 0.5,
+        build.stream_ptr(q.device))
+    build.check(code, "flash_decode_fused")
+    flash_decode_fused.launches += 1
+    return out, k_cache, v_cache
+
+
+flash_decode_fused.launches = 0
+
+
+# -- K4 ----------------------------------------------------------------------
+
+def flash_gqa_attention_plain(q, k_cache, v_cache, offset: int):
+    T = q.shape[1]
+    positions = offset + torch.arange(T, device=q.device, dtype=torch.int32)
+    return gqa_attention(q, k_cache, v_cache, positions)
+
+
+def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, offset: int) -> torch.Tensor:
+    """Causal prefill attention. q (B, T, H, D); caches (B, S, Hkv, D) or
+    flat (B, S, Hkv*D); query t sees cache slots s <= offset + t. Returns
+    (B, T, H, D) in q's dtype."""
+    if _on_cpu(q, k_cache, v_cache):
+        return flash_gqa_attention_plain(q, k_cache, v_cache, offset)
+    _check_kernel_args(q, k_cache, v_cache)
+    B, T, H, D = q.shape
+    S = k_cache.shape[1]
+    kc = k_cache.reshape(B, S, -1)
+    vc = v_cache.reshape(B, S, -1)
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    code = build.lib().tlt_flash_prefill(
+        q.data_ptr(), _is_bf16(q), kc.data_ptr(), vc.data_ptr(), _is_bf16(kc),
+        out.data_ptr(), B, T, H, kc.shape[2] // D, D, S, int(offset),
+        1.0 / D ** 0.5, build.stream_ptr(q.device))
+    build.check(code, "flash_gqa_attention")
+    flash_gqa_attention.launches += 1
+    return out
+
+
+flash_gqa_attention.launches = 0
