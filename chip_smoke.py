@@ -18,16 +18,33 @@ Phases, one JSON line each:
    flushed before every launch, median), and the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type, whichever is larger).
+   The paged decode kernels (K5, K6) run at serving shapes (batch 8, 32/4
+   heads, 1024-row tables, shuffled blocks, positions 15-1023), and again
+   with every block past pos // BS and block 0 poisoned (NaN): the output
+   must not change. K2 and K4 run again at the shapes serving gives them
+   (bf16 q over bf16 planes: K2 at batch 8 with positions 15-1023, K4 over
+   one slot's 1024-row view at offset 256 and 0). K1's library time is
+   torch._weight_int4pack_mm.
 3. cli — the port's `llm` CLI on a tiny GGUF (f32 and Q4_0, written here
    with the port's own writer), --dtype f32 and native, on the card and on
    the CPU: the greedy text must be identical.
-4. full width — a TinyLlama-1.1B-shaped Q4_0 model (22 layers, ~0.65 GB
+4. serve_cli — the port's `llm-serve` on the tiny GGUF, dense, --paged and
+   --paged --cache-dtype int8, on the card and on the CPU: the same
+   completions.
+5. full width — a TinyLlama-1.1B-shaped Q4_0 model (22 layers, ~0.65 GB
    packed) from seeded random weights built on the card, entered at
    Engine.generate: a 16-token prompt + 128 greedy tokens, a 512-token
    prompt (flash prefill), the first-step logits of the kernel path held
    against the plain path, and 128 steps of decode_step(defer_kv=True).
-   Each main-path run starts with every launch count at 0 and reads the
-   counts after; a kernel of the path that never launched fails the run.
+6. serve full width — the same model served by PagedEngine (bf16 pools,
+   block 16; int8 pools, block 32) and the dense BatchEngine (bf16 cache):
+   batch 8, max_seq 1024, 16 requests (8 sharing a 256-token prefix with
+   32-200-token tails, 8 distinct prompts of 64-512 tokens), 128 greedy
+   tokens each; throughput, TTFT, prefix hits, blocks in use, launches and
+   the device-busy share of 16 profiled engine steps; one batched decode
+   step's logits held against the plain path.
+Each main-path run starts with every launch count at 0 and reads the
+counts after; a kernel of the path that never launched fails the run.
 
 The last lines: the card's name and power limit, the kernels JSON, and
 {"ok": true, "device": {...}}.
@@ -158,7 +175,10 @@ def check_kernels(torch, timer):
         err, tol = compare("qmatmul", got, want, True, **info)
         ms = timer.ms(lambda: qmatmul(x, w, out_dtype=out_dtype))
         plain_ms = timer.ms(lambda: qmatmul_plain(x, w, out_dtype=out_dtype))
-        record("qmatmul", info, err, tol, ms, plain_ms, None,
+        lib_ms = None
+        if kind == "q4_0" and rows <= 8:
+            lib_ms = int4pack_ms(torch, timer, x, w, want, info)
+        record("qmatmul", info, err, tol, ms, plain_ms, lib_ms,
                w.nbytes + nbytes(x) + rows * N * got.element_size(),
                2.0 * rows * K * N, "bf16")
 
@@ -230,7 +250,178 @@ def check_kernels(torch, timer):
                qf, kt, vt, is_causal=True, enable_gqa=True)),
            nbytes(qp) * 2 + 2 * B * T * Hkv * D * it,
            4.0 * B * H * D * T * (T + 1) / 2, "f32")
+    check_serving_shapes(torch, timer, g, compare, record)
+    check_paged_kernels(torch, timer, g, compare, record, cases)
     return cases
+
+
+def check_serving_shapes(torch, timer, g, compare, record):
+    """K2 and K4 at the shapes serving gives them, bf16 q over bf16 cache
+    planes: K2 as the dense BatchEngine's decode (batch 8, a (8, 1024,
+    256) cache, ragged positions PAGED_POS); K4 as PagedEngine's prefill
+    over the gathered (1, 1024, 4, 64) view of one slot (a 256-token tail
+    after a 256-token prefix hit at offset 256, and a 512-token prompt at
+    offset 0)."""
+    from tpu_llm_torch.ops import flash_attention as FA
+
+    F = torch.nn.functional
+    dev, bf = "cuda", torch.bfloat16
+    H, Hkv, D, S = 32, 4, 64, 1024
+    it = 2
+
+    B = len(PAGED_POS)
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=dev)
+    kc, vc = (torch.randn((B, S, Hkv * D), generator=g, device=dev).to(bf)
+              for _ in range(2))
+    q = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
+    info = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, positions=PAGED_POS, q="bf16", cache="bf16")
+    got = FA.flash_decode_attention(q, kc, vc, pos)
+    err, tol = compare("flash_decode_attention", got,
+                       FA.flash_decode_attention_plain(q, kc, vc, pos), True, **info)
+    k4, v4 = (c.view(B, S, Hkv, D).transpose(1, 2) for c in (kc, vc))
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+    rows_read = sum(p + 1 for p in PAGED_POS)
+    record("flash_decode_attention", dict(info, library="sdpa, mask s <= pos"), err, tol,
+           timer.ms(lambda: FA.flash_decode_attention(q, kc, vc, pos)),
+           timer.ms(lambda: FA.flash_decode_attention_plain(q, kc, vc, pos)),
+           timer.ms(lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k4, v4, attn_mask=mask, enable_gqa=True)),
+           nbytes(q) * 2 + 2 * rows_read * Hkv * D * it + nbytes(pos),
+           4.0 * H * D * rows_read, "bf16")
+
+    kp, vp = (torch.randn((1, S, Hkv, D), generator=g, device=dev).to(bf)
+              for _ in range(2))
+    for T, off in ((256, 256), (512, 0)):
+        qp = torch.randn((1, T, H, D), generator=g, device=dev).to(bf)
+        info = dict(B=1, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=off, q="bf16", cache="bf16")
+        got = FA.flash_gqa_attention(qp, kp, vp, off)
+        err, tol = compare("flash_gqa_attention", got,
+                           FA.flash_gqa_attention_plain(qp, kp, vp, off), True, **info)
+        n_keys = off + T
+        kt, vt = (c[:, :n_keys].transpose(1, 2) for c in (kp, vp))
+        causal = (torch.arange(n_keys, device=dev)[None, :]
+                  <= off + torch.arange(T, device=dev)[:, None])
+        qt = qp.transpose(1, 2)
+        record("flash_gqa_attention", dict(info, library="sdpa, mask s <= offset + t"),
+               err, tol,
+               timer.ms(lambda: FA.flash_gqa_attention(qp, kp, vp, off)),
+               timer.ms(lambda: FA.flash_gqa_attention_plain(qp, kp, vp, off)),
+               timer.ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=causal, enable_gqa=True)),
+               nbytes(qp) * 2 + 2 * n_keys * Hkv * D * it,
+               4.0 * H * D * (T * off + T * (T + 1) / 2), "bf16")
+
+
+def int4pack_ms(torch, timer, x, w, want, info):
+    """torch._weight_int4pack_mm on the same q4_0 weight (repacked once,
+    outside the timed region): q4_0 is (n - 8) * d, the op's scale-and-zero
+    form with zero 0; the op keeps its scales in bf16. None, with the
+    reason emitted, when the installed torch lacks the op on the card."""
+    K2, N = w.q.shape
+    q = w.q.reshape(K2 // 16, 16, N).int()
+    vals = torch.cat([q & 15, q >> 4], dim=1).reshape(2 * K2, N).t()   # (N, K) 0..15
+    try:
+        packed = torch._convert_weight_to_int4pack(
+            ((vals[:, ::2] << 4) | vals[:, 1::2]).to(torch.uint8).contiguous(), 8)
+        sz = torch.stack([w.scales.bfloat16(), torch.zeros_like(w.scales, dtype=torch.bfloat16)],
+                         dim=-1).contiguous()
+        fn = lambda: torch._weight_int4pack_mm(x, packed, 32, sz)  # noqa: E731
+        err = (fn().float() - want.float()).abs().max().item()
+    except (AttributeError, RuntimeError, NotImplementedError) as e:
+        emit("library_int4pack", **info, available=False, reason=str(e)[:200])
+        return None
+    ms = timer.ms(fn)
+    emit("library_int4pack", **info, available=True, ms=ms, max_abs_err_vs_plain=err)
+    return ms
+
+
+PAGED_POS = [15, 100, 257, 511, 700, 900, 1000, 1023]
+
+
+def check_paged_kernels(torch, timer, g, compare, record, cases):
+    """K5 (bf16 and f32 pools, block 16) and K6 (int8 pools, block 32)
+    against their plain twins at serving shapes: batch 8, 32/4 heads,
+    head_dim 64, max_seq 1024, shuffled tables, positions PAGED_POS. Then
+    block 0 and every block past pos // BS poisoned: the same output.
+    Library: F.scaled_dot_product_attention over the rows gathered (and,
+    for int8, dequantized) beforehand, masked to s <= pos; the gather is
+    not timed."""
+    from tpu_llm_torch.ops import flash_attention as FA
+    from tpu_llm_torch.ops.kv_cache import dequantize_kv
+    from tpu_llm_torch.ops.paged_kv import (PagedKV, paged_gather, scale_pool_width,
+                                            scale_rows_per_block)
+
+    F = torch.nn.functional
+    dev = "cuda"
+    B, H, Hkv, D, max_seq = 8, 32, 4, 64, 1024
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=dev)
+    q_bf = torch.randn((B, 1, H, D), generator=g, device=dev).bfloat16()
+    cases["paged_flash_decode_attention"] = []
+    cases["paged_flash_decode_q"] = []
+    for name, pool, BS in (("paged_flash_decode_attention", "bf16", 16),
+                           ("paged_flash_decode_attention", "f32", 16),
+                           ("paged_flash_decode_q", "int8", 32)):
+        MB = max_seq // BS
+        N = 1 + B * MB
+        table = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(BS)) + 1)
+        table = table.reshape(B, MB).to(device=dev, dtype=torch.int32)
+        if pool == "int8":
+            kp, vp = (torch.randint(-127, 128, (N, BS, Hkv * D), generator=g, device=dev,
+                                    dtype=torch.int32).to(torch.int8) for _ in range(2))
+            shape = (N * scale_rows_per_block(Hkv), scale_pool_width(BS))
+            ks, vs = (torch.rand(shape, generator=g, device=dev) * 0.09 + 0.01
+                      for _ in range(2))
+            scales = (ks, vs)
+        else:
+            dt = torch.bfloat16 if pool == "bf16" else torch.float32
+            kp, vp = (torch.randn((N, BS, Hkv * D), generator=g, device=dev).to(dt)
+                      for _ in range(2))
+            scales = ()
+        q = q_bf if pool != "f32" else q_bf.float()
+        kernel = getattr(FA, name)
+        plain = getattr(FA, name + "_plain")
+        args = (q, kp, vp, *scales, table, pos)
+        info = dict(B=B, H=H, Hkv=Hkv, D=D, BS=BS, MB=MB, pool=pool,
+                    q=str(q.dtype).replace("torch.", ""), positions=PAGED_POS)
+        got = kernel(*args)
+        err, tol = compare(name, got, plain(*args), pool != "f32", **info)
+
+        # poison block 0 and every block no row reads (past pos // BS)
+        live = set()
+        for b in range(B):
+            live.update(table[b, :PAGED_POS[b] // BS + 1].tolist())
+        dead = torch.tensor([i for i in range(N) if i not in live], device=dev)
+        nan = float("nan")
+        if pool == "int8":
+            hp = shape[0] // N
+            rows = (dead[:, None] * hp + torch.arange(hp, device=dev)).reshape(-1)
+            poisoned = (q, kp.index_fill(0, dead, -128), vp.index_fill(0, dead, -128),
+                        ks.index_fill(0, rows, nan), vs.index_fill(0, rows, nan), table, pos)
+        else:
+            poisoned = (q, kp.index_fill(0, dead, nan), vp.index_fill(0, dead, nan),
+                        table, pos)
+        again = kernel(*poisoned)
+        if not (bool(torch.isfinite(again).all()) and torch.equal(again, got)):
+            fail(f"{name} {info}: poisoned unread blocks changed the output")
+
+        kv = PagedKV(kp, vp, table, pos + 1, *scales)
+        kg, vg = paged_gather(kv, n_kv_heads=Hkv)
+        S = MB * BS
+        if pool == "int8":
+            kg, vg = (dequantize_kv(a, torch.bfloat16, head_dim=D) for a in (kg, vg))
+        k4, v4 = (a.reshape(B, S, Hkv, D).transpose(1, 2).contiguous() for a in (kg, vg))
+        qs = q.transpose(1, 2).to(k4.dtype)
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+        rows_read = sum(p + 1 for p in PAGED_POS)
+        it = kp.element_size()
+        moved = (nbytes(q) * 2 + 2 * rows_read * Hkv * D * it
+                 + sum(4 * (p // BS + 1) for p in PAGED_POS)             # table entries
+                 + (2 * rows_read * Hkv * 4 if pool == "int8" else 0))   # scales
+        record(name, dict(info, library="sdpa over pre-gathered rows (gather not timed)"),
+               err, tol, timer.ms(lambda: kernel(*args)), timer.ms(lambda: plain(*args)),
+               timer.ms(lambda: F.scaled_dot_product_attention(
+                   qs, k4, v4, attn_mask=mask, enable_gqa=True)),
+               moved, 4.0 * H * D * rows_read, "f32")
 
 
 # -- phase 3: the CLI on a tiny GGUF ---------------------------------------------
@@ -316,7 +507,43 @@ def check_cli(tmp: str):
     return results
 
 
-# -- phase 4: full width ---------------------------------------------------------
+# -- phase 4: llm-serve on the tiny GGUF -------------------------------------------
+
+SERVE_MODES = {"dense": [], "paged": ["--paged", "--block-size", "4"],
+               "paged_int8": ["--paged", "--cache-dtype", "int8"]}
+
+
+def run_serve_cli(argv):
+    """The port's serve CLI in-process: (per-request rows, summary)."""
+    from tpu_llm_torch.runtime import serve_cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = serve_cli.main(argv)
+    if rc != 0:
+        fail(f"serve_cli {argv} exited {rc}: {err.getvalue()[-500:]}")
+    rows = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    summary = json.loads([ln for ln in err.getvalue().splitlines() if ln.startswith("{")][-1])
+    return rows, summary
+
+
+def check_serve_cli(tmp: str):
+    path = os.path.join(tmp, "tiny_serve_f32.gguf")
+    write_tiny_gguf(path, quant=False)
+    base = ["-m", path, "-p", "abc", "-p", "ab", "-p", "abc abc ab", "-p", "abc abc b",
+            "-n", "6", "--batch", "2", "--dtype", "f32"]
+    for mode, flags in SERVE_MODES.items():
+        card, card_sum = run_serve_cli(base + flags + ["--device", "cuda"])
+        cpu, _ = run_serve_cli(base + flags + ["--device", "cpu"])
+        comp = [(r["completion"], r["n_tokens"]) for r in card]
+        row = dict(mode=mode, cuda=comp, cpu=[(r["completion"], r["n_tokens"]) for r in cpu],
+                   summary=card_sum)
+        emit("serve_cli", **row)
+        if row["cuda"] != row["cpu"] or len(comp) != 4 or any(n != 6 for _, n in comp):
+            fail(f"serve_cli completions differ between card and CPU: {row}")
+
+
+# -- phase 5: full width ---------------------------------------------------------
 
 def synth_tinyllama_q4(torch, cfg, seed: int):
     """TinyLlama-shaped packed Q4_0 weights built on the card from a seeded
@@ -341,28 +568,19 @@ def synth_tinyllama_q4(torch, cfg, seed: int):
     return {"tok_emb": emb, "final_norm": ones(), "wcls": qt(E, V), "layers": layers}
 
 
-def profile_decode(torch, params, cfg, max_seq: int, steps: int):
-    """torch.profiler over ``steps`` decode steps (K2 path, pos 16..):
-    device busy time (sum of kernel times on the one stream) over wall
-    time, and the kernels that take the most of it. The profiler slows
-    the host, so the busy share is a lower bound on the unprofiled one."""
+def profile_busy(torch, run, steps: int):
+    """torch.profiler around ``run()`` (``steps`` steps, ending
+    synchronized): device busy time (sum of kernel times on the one
+    stream) over wall time, and the kernels that take the most of it. The
+    profiler slows the host, so the busy share is a lower bound on the
+    unprofiled one."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_llm_torch.models import llama as M
-
-    cache = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
-    tok = torch.tensor([1], device="cuda")
-    with torch.inference_mode():
-        for pos in range(16):                       # fill 16 rows, warm up
-            logits, cache = M.decode_step(params, cfg, tok, cache, pos)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for pos in range(16, 16 + steps):
-                logits, cache = M.decode_step(params, cfg, tok, cache, pos)
-                tok = torch.argmax(logits, dim=-1)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t) * 1e6
+        wall_us = (time.perf_counter() - t) * 1e6
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -383,6 +601,27 @@ def profile_decode(torch, params, cfg, max_seq: int, steps: int):
                           calls_per_step=c / steps) for us, k, c in rows[:10]])
 
 
+def profile_decode(torch, params, cfg, max_seq: int, steps: int):
+    """The device busy share over ``steps`` decode steps of the CLI path
+    (K2, positions 16..)."""
+    from tpu_llm_torch.models import llama as M
+
+    cache = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
+    tok = torch.tensor([1], device="cuda")
+    with torch.inference_mode():
+        for pos in range(16):                       # fill 16 rows, warm up
+            logits, cache = M.decode_step(params, cfg, tok, cache, pos)
+        torch.cuda.synchronize()
+
+        def run():
+            nonlocal tok, cache
+            for pos in range(16, 16 + steps):
+                logits, cache = M.decode_step(params, cfg, tok, cache, pos)
+                tok = torch.argmax(logits, dim=-1)
+
+        return profile_busy(torch, run, steps)
+
+
 @contextlib.contextmanager
 def plain_path():
     """Route the model's kernel calls to their plain twins (on the card)."""
@@ -390,19 +629,23 @@ def plain_path():
     from tpu_llm_torch.ops import flash_attention as FA
     from tpu_llm_torch.quant import linear, qmatmul
 
-    saved = {n: getattr(M, n) for n in ("flash_decode_attention", "flash_decode_fused",
-                                        "flash_gqa_attention")}
+    from tpu_llm_torch.ops import paged_kv
+
+    swaps = [(M, n) for n in ("flash_decode_attention", "flash_decode_fused",
+                              "flash_gqa_attention")]
+    swaps += [(paged_kv, n) for n in ("paged_flash_decode_attention", "paged_flash_decode_q",
+                                      "flash_gqa_attention")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in swaps]
     saved_q = linear.qmatmul
     try:
         linear.qmatmul = qmatmul.qmatmul_plain
-        M.flash_decode_attention = FA.flash_decode_attention_plain
-        M.flash_decode_fused = FA.flash_decode_fused_plain
-        M.flash_gqa_attention = FA.flash_gqa_attention_plain
+        for mod, n in swaps:
+            setattr(mod, n, getattr(FA, n + "_plain"))
         yield
     finally:
         linear.qmatmul = saved_q
-        for n, f in saved.items():
-            setattr(M, n, f)
+        for mod, n, f in saved:
+            setattr(mod, n, f)
 
 
 def counters():
@@ -411,7 +654,9 @@ def counters():
 
     return {"qmatmul": qmatmul.qmatmul, "flash_decode_attention": FA.flash_decode_attention,
             "flash_decode_fused": FA.flash_decode_fused,
-            "flash_gqa_attention": FA.flash_gqa_attention}
+            "flash_gqa_attention": FA.flash_gqa_attention,
+            "paged_flash_decode_attention": FA.paged_flash_decode_attention,
+            "paged_flash_decode_q": FA.paged_flash_decode_q}
 
 
 def reset_counts():
@@ -538,7 +783,151 @@ def full_width(torch):
                 device_busy_share=prof["device_busy_share"],
                 decode_tok_s=res.tokens_per_s, ttft_ms_16=res.ttft_s * 1e3,
                 ttft_ms_512=res512.ttft_s * 1e3, defer_tok_s=128 / secs,
-                packed_bytes=packed)
+                packed_bytes=packed), params, cfg
+
+
+# -- phase 6: serving at full width ------------------------------------------------
+
+SERVE_NEW = 128
+
+
+def serve_requests(cfg, seed: int = 11):
+    """8 prompts sharing a 256-token prefix with 32-200-token tails,
+    interleaved with 8 distinct prompts of 64-512 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tok = lambda n: [int(t) for t in rng.integers(3, cfg.vocab_size, n)]  # noqa: E731
+    prefix = tok(256)
+    shared = [prefix + tok(int(n)) for n in rng.integers(32, 201, 8)]
+    distinct = [tok(int(n)) for n in rng.integers(64, 513, 8)]
+    return [p for pair in zip(shared, distinct) for p in pair]
+
+
+def serve_engines(torch, params, cfg, max_seq: int):
+    from tpu_llm_torch.runtime.batching import BatchEngine
+    from tpu_llm_torch.runtime.engine import ModelAdapter
+    from tpu_llm_torch.runtime.paged_engine import PagedEngine
+
+    def paged(cache_dtype, bs):
+        return lambda: PagedEngine(params, cfg, batch=8, block_size=bs, max_seq=max_seq,
+                                   n_blocks=1 + 8 * (max_seq // bs), cache_dtype=cache_dtype,
+                                   device="cuda")
+
+    return {
+        "paged_bf16_bs16": (paged(torch.bfloat16, 16),
+                            ("qmatmul", "paged_flash_decode_attention")),
+        "paged_int8_bs32": (paged("int8", 32), ("qmatmul", "paged_flash_decode_q")),
+        "dense_bf16": (lambda: BatchEngine(
+            params, ModelAdapter.llama(cfg, torch.bfloat16, bos_id=1, device="cuda"),
+            batch=8, max_seq=max_seq), ("qmatmul", "flash_decode_attention")),
+    }
+
+
+def decode_logits_vs_plain(torch, eng, params, cfg, requests, label):
+    """One batched decode step's logits, kernel path against plain_path(),
+    from an engine with 8 admitted requests two steps in (per-row
+    positions: K5 / K6 through the block table, or K2 over the dense
+    cache)."""
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.batching import Request, to_device
+    from tpu_llm_torch.runtime.paged_engine import PagedEngine
+
+    eng.reset()
+    for p in requests[:8]:
+        eng.submit(Request(prompt=p, max_new=SERVE_NEW))
+    eng.step()
+    eng.step()
+    eng._collect()
+    live = [(i, s.req) for i, s in enumerate(eng.slots) if not s.free]
+    eng._pre_dispatch(live)
+    offsets = to_device([s.pos for s in eng.slots], torch.int32, eng.device)
+    tok = eng._token_dev.clone()
+
+    def logits():
+        with torch.no_grad():
+            if isinstance(eng, PagedEngine):
+                hidden = eng._forward(tok[:, None], eng.state["table"],
+                                      eng.state["lengths"], offsets)
+            else:
+                hidden, _ = M.forward(params, cfg, tok[:, None], eng.state, offsets)
+            return M.lm_head(params, cfg, hidden)[:, 0, :]
+
+    kern = logits()
+    with plain_path():
+        plain = logits()
+    err = (kern - plain).abs().max().item()
+    tol = 2e-2 * plain.abs().max().item()
+    row = dict(engine=label, rows=kern.shape[0], top1_kernel=kern.argmax(-1).tolist(),
+               top1_plain=plain.argmax(-1).tolist(), max_abs_err=err, tol=tol)
+    emit("serve_logits_vs_plain", **row)
+    if not (bool(torch.isfinite(kern).all()) and row["top1_kernel"] == row["top1_plain"]
+            and err <= tol):
+        fail(f"batched decode logits differ from the plain path: {row}")
+
+
+def serve_full_width(torch, params, cfg):
+    from tpu_llm_torch.runtime.batching import Request
+
+    max_seq = 1024
+    requests = serve_requests(cfg)
+    runs, total = {}, {n: 0 for n in counters()}
+    for label, (make, must) in serve_engines(torch, params, cfg, max_seq).items():
+        eng = make()
+        eng.submit(Request(prompt=requests[1][:64], max_new=8))   # warm-up
+        eng.run()
+        eng.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        reset_counts()
+        first = {}
+        t0 = time.perf_counter()
+
+        def mark(i):
+            return lambda _tok: first.setdefault(i, time.perf_counter() - t0)
+
+        reqs = [eng.submit(Request(prompt=p, max_new=SERVE_NEW, stream=mark(i)))
+                for i, p in enumerate(requests)]
+        steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for k in must:
+            if counts[k] <= 0:
+                fail(f"serving run {label}: kernel {k} was never launched ({counts})")
+        for r in reqs:
+            if len(r.tokens) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r.tokens):
+                fail(f"serving run {label}: request {r.rid} gave {len(r.tokens)} tokens")
+        for k, v in counts.items():
+            total[k] += v
+        gen = sum(len(r.tokens) for r in reqs)
+        ttfts = sorted(first.values())
+        pc = getattr(eng, "prefix", None)
+        row = dict(engine=label, requests=len(reqs), generated_tokens=gen, wall_s=wall,
+                   tokens_per_s=gen / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+                   engine_steps=steps, launches=counts,
+                   prefix_hit_rate=(pc.hits / pc.queries) if pc and pc.queries else None,
+                   hbm_blocks_in_use=getattr(eng, "hbm_blocks_in_use", None),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+        # 16 profiled decode steps with 8 live slots, and their launches
+        eng.reset()
+        for p in requests[:8]:
+            eng.submit(Request(prompt=p, max_new=SERVE_NEW))
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+        reset_counts()
+        prof = profile_busy(torch, lambda: [eng.step() for _ in range(16)], 16)
+        row["launches_per_step"] = {k: v / 16 for k, v in read_counts().items()}
+        row["profile"] = prof
+        emit("serve_full_width", **row)
+        runs[label] = row
+        decode_logits_vs_plain(torch, eng, params, cfg, requests, label)
+        del eng
+        torch.cuda.empty_cache()
+    return dict(runs=runs, total=total)
 
 
 # -- main --------------------------------------------------------------------------
@@ -547,11 +936,15 @@ KERNELS = [
     ("qmatmul", "tpu_llm_torch/csrc/qmatmul.cu", "tpu_llm/quant/pallas_matmul.py:59",
      dict(weight="w13", kind="q4_0", rows=1)),
     ("flash_decode_attention", "tpu_llm_torch/csrc/flash_attention.cu",
-     "tpu_llm/ops/flash_attention.py:121", dict(pos=1000)),
+     "tpu_llm/ops/flash_attention.py:121", dict(cache="bf16")),
     ("flash_decode_fused", "tpu_llm_torch/csrc/flash_attention.cu",
      "tpu_llm/ops/flash_attention.py:801", dict(pos=1000)),
     ("flash_gqa_attention", "tpu_llm_torch/csrc/flash_attention.cu",
-     "tpu_llm/ops/flash_attention.py:51", dict(T=512)),
+     "tpu_llm/ops/flash_attention.py:51", dict(T=512, cache="bf16")),
+    ("paged_flash_decode_attention", "tpu_llm_torch/csrc/paged_attention.cu",
+     "tpu_llm/ops/flash_attention.py:264", dict(pool="bf16")),
+    ("paged_flash_decode_q", "tpu_llm_torch/csrc/paged_attention.cu",
+     "tpu_llm/ops/flash_attention.py:439", dict(pool="int8")),
 ]
 
 
@@ -585,15 +978,18 @@ def main() -> int:
     cases = check_kernels(torch, timer)
     with tempfile.TemporaryDirectory() as tmp:
         check_cli(tmp)
-    fw = full_width(torch)
+        check_serve_cli(tmp)
+    fw, params, cfg = full_width(torch)
     emit("full_width", **{k: v for k, v in fw.items() if k != "runs"})
+    sv = serve_full_width(torch, params, cfg)
+    total = {k: fw["total"][k] + sv["total"][k] for k in fw["total"]}
 
     out = []
     for name, source, replaces, pick in KERNELS:
-        rep = next(c for c in cases[name] if all(c[k] == v for k, v in pick.items()))
+        rep = next(c for c in cases[name] if all(c.get(k) == v for k, v in pick.items()))
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": fw["total"][name],
+            "launches": total[name],
             "max_abs_err": rep["max_abs_err"],
             "max_abs_err_all_cases": max(c["max_abs_err"] for c in cases[name]),
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],

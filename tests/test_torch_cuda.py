@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card,
 at edge shapes the smoke run (chip_smoke.py, main-path shapes) does not
 reach: ragged N (N % 4 != 0), odd row counts, head_dim 16 to 128, per-row
-positions, bf16 caches, tile boundaries. Marked ``cuda``: each test skips
+positions, bf16 caches, tile boundaries; for the paged decode kernels
+position 0 and block boundaries, block sizes 8 to 64, a prefix block
+shared across rows and poisoned unmapped blocks. Marked ``cuda``: each test skips
 where there is no card. On a machine with one, run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -154,3 +156,131 @@ def test_model_logits_card_match_cpu(gen):
             got, gc = M.decode_step(card, cfg, torch.tensor([tok], device="cuda"),
                                     gc, pos, defer)
             torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def _paged_case(gen, B, H, Hkv, D, BS, MB, pool_dtype):
+    """Shuffled distinct blocks per row, row 1 sharing row 0's first block
+    (a shared prefix), positions 0, BS-1, BS and the last row."""
+    N = 1 + B * MB
+    ids = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(BS)) + 1)
+    table = ids[:B * MB].reshape(B, MB).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    table = table.cuda()
+    pos = torch.tensor([0, BS - 1, BS, MB * BS - 1][:B], dtype=torch.int32, device="cuda")
+    if pool_dtype == torch.int8:
+        mk = lambda: torch.randint(-127, 128, (N, BS, Hkv * D), generator=gen,  # noqa: E731
+                                   device="cuda", dtype=torch.int32).to(torch.int8)
+    else:
+        mk = lambda: torch.randn((N, BS, Hkv * D), generator=gen,  # noqa: E731
+                                 device="cuda").to(pool_dtype)
+    return mk(), mk(), table, pos
+
+
+def _dead_blocks(table, pos, BS, N):
+    """Block 0 and every block no row maps at or below its pos // BS."""
+    live = {int(table[b, j]) for b in range(table.shape[0])
+            for j in range(int(pos[b]) // BS + 1)}
+    return [i for i in range(N) if i not in live or i == 0]
+
+
+def _poison(pool, dead, value):
+    out = pool.clone()
+    out[dead] = value
+    return out
+
+
+@pytest.mark.parametrize("BS", [8, 16, 32, 64])
+@pytest.mark.parametrize("D,H,Hkv", [(64, 8, 2), (128, 8, 4)])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32pool", "bf16pool"])
+def test_paged_decode_kernel_matches_plain(gen, BS, D, H, Hkv, qdt, pool_dtype):
+    B, MB = 4, 8
+    kp, vp, table, pos = _paged_case(gen, B, H, Hkv, D, BS, MB, pool_dtype)
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(qdt)
+    launches = FA.paged_flash_decode_attention.launches
+    got = FA.paged_flash_decode_attention(q, kp, vp, table, pos)
+    assert FA.paged_flash_decode_attention.launches == launches + 1
+    bf16 = torch.bfloat16 in (qdt, pool_dtype)
+    _close(got, FA.paged_flash_decode_attention_plain(q, kp, vp, table, pos), bf16)
+    dead = _dead_blocks(table, pos, BS, kp.shape[0])
+    nan = float("nan")
+    again = FA.paged_flash_decode_attention(q, _poison(kp, dead, nan),
+                                            _poison(vp, dead, nan), table, pos)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("BS", [8, 16, 32, 64])
+@pytest.mark.parametrize("D,H,Hkv", [(64, 8, 2), (128, 8, 4)])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_decode_q_kernel_matches_plain(gen, BS, D, H, Hkv, qdt):
+    from tpu_llm_torch.ops.paged_kv import scale_pool_width, scale_rows_per_block
+
+    B, MB = 4, 8
+    kp, vp, table, pos = _paged_case(gen, B, H, Hkv, D, BS, MB, torch.int8)
+    N = kp.shape[0]
+    shape = (N * scale_rows_per_block(Hkv), scale_pool_width(BS))
+    ks = torch.rand(shape, generator=gen, device="cuda") * 0.09 + 0.01
+    vs = torch.rand(shape, generator=gen, device="cuda") * 0.09 + 0.01
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(qdt)
+    launches = FA.paged_flash_decode_q.launches
+    got = FA.paged_flash_decode_q(q, kp, vp, ks, vs, table, pos)
+    assert FA.paged_flash_decode_q.launches == launches + 1
+    # the kernel rounds q and p * vs to bf16 whatever q's dtype
+    _close(got, FA.paged_flash_decode_q_plain(q, kp, vp, ks, vs, table, pos), True)
+    dead = _dead_blocks(table, pos, BS, N)
+    hp = shape[0] // N
+    dead_rows = [b * hp + i for b in dead for i in range(hp)]
+    nan = float("nan")
+    again = FA.paged_flash_decode_q(q, _poison(kp, dead, -128), _poison(vp, dead, -128),
+                                    _poison(ks, dead_rows, nan), _poison(vs, dead_rows, nan),
+                                    table, pos)
+    assert torch.equal(again, got)
+
+
+def test_paged_kernels_refuse_bad_arguments(gen):
+    q = torch.zeros((2, 1, 8, 64), device="cuda")
+    pool = torch.zeros((5, 16, 128), device="cuda")
+    table = torch.ones((2, 2), dtype=torch.int32, device="cuda")
+    pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):          # table on the CPU
+        FA.paged_flash_decode_attention(q, pool, pool, table.cpu(), pos)
+    with pytest.raises(ValueError, match="block table"):
+        FA.paged_flash_decode_attention(q, pool, pool, table.long(), pos)
+    with pytest.raises(ValueError, match="pool dtypes"):
+        FA.paged_flash_decode_q(q, pool, pool, pool[0], pool[0], table, pos)
+
+
+@pytest.mark.parametrize("cache_dtype,block_size", [(torch.float32, 4),
+                                                    (torch.float32, 16), ("int8", 32)])
+def test_paged_engine_card_matches_cpu(gen, cache_dtype, block_size):
+    """A small q4_0 llama served by PagedEngine on the card (kernels) and
+    on the CPU (plain twins), f32 activations: identical greedy tokens."""
+    from tpu_llm_torch.config import LlamaConfig
+    from tpu_llm_torch.quant.convert_params import quantize_llama_params
+    from tpu_llm_torch.runtime.paged_engine import PagedEngine, Request
+
+    cfg = LlamaConfig(dim=128, hidden_dim=96, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=100, seq_len=64)
+    g = torch.Generator().manual_seed(2)
+    s = lambda *shape: torch.randn(shape, generator=g) * 0.08  # noqa: E731
+    dense = {"tok_emb": s(100, 128), "final_norm": 1 + 0.1 * s(128), "wcls": s(128, 100),
+             "layers": [{"attn_norm": 1 + 0.1 * s(128), "ffn_norm": 1 + 0.1 * s(128),
+                         "wq": s(128, 128), "wk": s(128, 64), "wv": s(128, 64),
+                         "wo": s(128, 128), "w1": s(128, 96), "w3": s(128, 96),
+                         "w2": s(96, 128)} for _ in range(2)]}
+    cpu = quantize_llama_params(dense, "q4_0", fuse=True)
+    card = quantize_llama_params(
+        {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in dense.items()
+         if k != "layers"} | {"layers": [{k: v.cuda() for k, v in lp.items()}
+                                         for lp in dense["layers"]]},
+        "q4_0", fuse=True)
+    prompts = [[5, 11, 8, 3, 9, 2, 7], [5, 11, 8, 3, 40], [9] * 20, [3]]
+    runs = []
+    for params, device in ((cpu, "cpu"), (card, "cuda")):
+        pe = PagedEngine(params, cfg, batch=2, n_blocks=48, block_size=block_size,
+                         max_seq=64, cache_dtype=cache_dtype, device=device)
+        reqs = [pe.submit(Request(prompt=p, max_new=8)) for p in prompts]
+        pe.run()
+        runs.append([r.tokens for r in reqs])
+    assert runs[0] == runs[1]

@@ -208,3 +208,27 @@ def test_engine_generate_matches_jax_greedy_and_seeds_sampling():
     a = teng.generate(prompt, n_total=12, temperature=0.9, seed=4).tokens
     b = teng.generate(prompt, n_total=12, temperature=0.9, seed=4).tokens
     assert a == b and len(a) == 12 and a[:3] == prompt
+
+
+@pytest.mark.parametrize("weights", ["dense", "q4_0"])
+def test_forward_with_offset_vector_matches_jax(weights):
+    """forward(offset=(B,) tensor): each row at its own position through
+    RoPE, the cache write and attention (continuous batching)."""
+    jp, tp = both(weights)
+    jcfg, tcfg = JConfig(**CFG), TConfig(**CFG)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, CFG["vocab_size"], (2, 9)).astype(np.int32)
+    jc = J.init_cache(jcfg, 2, CFG["seq_len"])
+    tc = T.init_cache(tcfg, 2, CFG["seq_len"])
+    _, jc = J.forward(jp, jcfg, jnp.asarray(toks), jc, jnp.int32(0))
+    T.forward(tp, tcfg, torch.from_numpy(toks), tc, 0)
+    for offs in ([3, 8], [9, 5], [2, 2]):
+        step = np.asarray([[7], [40]], np.int32)
+        jx, jc = J.forward(jp, jcfg, jnp.asarray(step), jc, jnp.asarray(offs, jnp.int32))
+        tx, tc = T.forward(tp, tcfg, torch.from_numpy(step), tc,
+                           torch.tensor(offs, dtype=torch.int32))
+        np.testing.assert_allclose(T.lm_head(tp, tcfg, tx).numpy(),
+                                   np.asarray(J.lm_head(jp, jcfg, jx)), **TOL)
+    for i in range(CFG["n_layers"]):
+        np.testing.assert_allclose(tc["k"][i].numpy(),
+                                   np.asarray(jc["k"][i]).reshape(tc["k"][i].shape), **TOL)

@@ -18,6 +18,12 @@ attention + append kernel (K3).
 The KV cache is a list of per-layer flat (B, S, Hkv*D) planes, written IN
 PLACE (the JAX version threads new arrays through; here a decode step
 writes one row). There is no autograd: this path serves only.
+
+``offset`` is an int, or a (B,) tensor giving each batch row its own
+position (continuous batching: positions (B, T) flow through RoPE, the
+cache write and attention; decode then goes to K2 with per-row
+positions). ``update_fn`` / ``attn_fn`` replace the cache write and the
+attention (the paged engine's hooks, as in the reference).
 """
 
 from __future__ import annotations
@@ -59,17 +65,18 @@ def init_cache(cfg: LlamaConfig, batch: int = 1, max_seq=None,
 
 # -- forward -----------------------------------------------------------------
 
-def _attend(q, kc, vc, positions, offset: int):
+def _attend(q, kc, vc, positions, offset):
     T, S, H = q.shape[1], kc.shape[1], q.shape[2]
     if T == 1:
         return flash_decode_attention(q, kc, vc, positions)
-    if q.shape[0] * T * S * H * 4 > FLASH_PREFILL_SCORES_BYTES:
+    if (not torch.is_tensor(offset)
+            and q.shape[0] * T * S * H * 4 > FLASH_PREFILL_SCORES_BYTES):
         return flash_gqa_attention(q, kc, vc, offset)
     return gqa_attention(q, kc, vc, positions)
 
 
-def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset: int, rope_cs,
-           defer_kv: bool):
+def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
+           defer_kv: bool, update_fn=None, attn_fn=None):
     B, T, _ = x.shape
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     if "wqkv" in lp:
@@ -91,8 +98,8 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset: int, rope_cs,
         attn, kc, vc = flash_decode_fused(q, kc, vc, k.reshape(B, T, cfg.kv_dim),
                                           v.reshape(B, T, cfg.kv_dim), positions)
     else:
-        update_kv_cache(kc, vc, k, v, offset)
-        attn = _attend(q, kc, vc, positions, offset)
+        kc, vc = (update_fn or update_kv_cache)(kc, vc, k, v, offset)
+        attn = (attn_fn or _attend)(q, kc, vc, positions, offset)
     x = x + matmul(attn.reshape(B, T, cfg.q_dim), lp["wo"])
 
     h = rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
@@ -106,18 +113,26 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset: int, rope_cs,
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache,
-            offset: int, defer_kv: bool = False) -> Tuple[torch.Tensor, Cache]:
+            offset, defer_kv: bool = False, update_fn=None,
+            attn_fn=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, T) at positions [offset, offset + T) -> (final-normed
-    hidden (B, T, E), cache). The cache planes are updated in place."""
+    hidden (B, T, E), cache). ``offset`` is an int or a (B,) tensor of
+    per-row positions. The cache planes are updated in place (``update_fn``
+    and ``attn_fn`` replace the write and the attention; a paged cache
+    passes its per-layer state in cache["k"])."""
     B, T = tokens.shape
-    if defer_kv and T != 1:
-        raise ValueError("defer_kv is a decode (T == 1) path")
+    if defer_kv and (T != 1 or torch.is_tensor(offset)):
+        raise ValueError("defer_kv is a decode (T == 1) path at one int offset")
     x = params["tok_emb"][tokens.long()]
-    positions = offset + torch.arange(T, dtype=torch.int32, device=x.device)
+    steps = torch.arange(T, dtype=torch.int32, device=x.device)
+    if torch.is_tensor(offset):
+        positions = offset.to(device=x.device, dtype=torch.int32).reshape(B, 1) + steps
+    else:
+        positions = offset + steps
     rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_variant)
     for i, lp in enumerate(params["layers"]):
         x = _block(cfg, x, lp, cache["k"][i], cache["v"][i], positions, offset,
-                   rope_cs, defer_kv)
+                   rope_cs, defer_kv, update_fn, attn_fn)
     return apply_final_norm(params, cfg, x), cache
 
 

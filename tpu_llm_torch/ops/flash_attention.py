@@ -14,7 +14,17 @@ Three kernels, each replacing a Pallas kernel of
   ``decode_step(defer_kv=True)`` runs it.
 - ``flash_gqa_attention`` (K4, ``_flash_kernel``): causal prefill, query t
   sees s <= offset + t. Prefill takes it when the einsum path's scores
-  would pass 64 MB (models/llama._attend).
+  would pass 64 MB (models/llama._attend), and the paged engine's long
+  prefill chunks over the gathered view (ops/paged_kv.py).
+
+And, in ``csrc/paged_attention.cu``:
+
+- ``paged_flash_decode_attention`` (K5, ``_paged_decode_kernel``): one
+  query a batch row over shared f32/bf16 pools through an int32 block
+  table, keys s <= pos[b]. Every one-query step of ``PagedEngine`` with
+  f32/bf16 pools runs it.
+- ``paged_flash_decode_q`` (K6, ``_paged_decode_q_kernel``): the same over
+  int8 pools with 2-D scale pools (``--cache-dtype int8 --paged``).
 
 Each wrapper takes its plain twin for CPU tensors and launches its kernel
 for CUDA tensors, or raises; ``<wrapper>.launches`` counts the kernel
@@ -27,6 +37,7 @@ import torch
 
 from tpu_llm_torch.kernels import build
 from tpu_llm_torch.ops.attention import gqa_attention, gqa_attention_deferred
+from tpu_llm_torch.ops.kv_cache import QuantKV, gather_scale_pool
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -38,22 +49,24 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {dev}")
 
 
-def _check_kernel_args(q, k_cache, v_cache):
+_FLOAT_PLANES = (torch.float32, torch.bfloat16)
+
+
+def _check_kernel_args(q, k_cache, v_cache, plane_dtypes=_FLOAT_PLANES, what="cache"):
     D = q.shape[-1]
     if D % 16 or not 16 <= D <= 128:
         raise ValueError(f"head_dim {D}: the attention kernels take a multiple "
                          f"of 16 up to 128")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q dtype {q.dtype}: the kernels take f32 or bf16")
-    if k_cache.dtype != v_cache.dtype or k_cache.dtype not in (torch.float32,
-                                                               torch.bfloat16):
-        raise ValueError(f"cache dtypes {k_cache.dtype}/{v_cache.dtype}: the "
-                         f"kernels take matching f32 or bf16 planes")
+    if k_cache.dtype != v_cache.dtype or k_cache.dtype not in plane_dtypes:
+        raise ValueError(f"{what} dtypes {k_cache.dtype}/{v_cache.dtype}: this "
+                         f"kernel takes matching {plane_dtypes} planes")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("cache planes must be contiguous")
+        raise ValueError(f"{what} planes must be contiguous")
     hkv_d = k_cache[0, 0].numel()
     if hkv_d % D or q.shape[2] % (hkv_d // D):
-        raise ValueError(f"cache row width {hkv_d} does not hold whole kv "
+        raise ValueError(f"{what} row width {hkv_d} does not hold whole kv "
                          f"heads of {q.shape[2]} query heads of size {D}")
 
 
@@ -191,3 +204,140 @@ def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 flash_gqa_attention.launches = 0
+
+
+# -- K5 / K6: paged decode ---------------------------------------------------
+
+# the grid a paged decode launch aims for: about two CTAs per SM of the H100
+PAGED_TARGET_CTAS = 264
+PAGED_TILE = 64          # keys per tile in csrc/paged_attention.cu
+
+
+def paged_splits(B: int, Hkv: int, max_rows: int):
+    """(rows_per_split, n_split): the sequence splits over the grid until
+    B * Hkv * n_split reaches PAGED_TARGET_CTAS, each split a whole number
+    of 64-row tiles."""
+    tiles = -(-max_rows // PAGED_TILE)
+    want = min(tiles, max(1, -(-PAGED_TARGET_CTAS // (B * Hkv))))
+    rows = -(-tiles // want) * PAGED_TILE
+    return rows, -(-max_rows // rows)
+
+
+def _gather_pool(pool, block_table):
+    """(N, BS, Hkv*D) pool through a (B, MB) table -> (B, MB*BS, Hkv*D)."""
+    B = block_table.shape[0]
+    return pool[block_table.long()].reshape(B, -1, pool.shape[-1])
+
+
+def paged_flash_decode_attention_plain(q, k_pool, v_pool, block_table, positions):
+    """The gather route: the blocks to a (B, MB*BS) view, then masked GQA
+    attention with kv_lengths = pos + 1."""
+    B, D = q.shape[0], q.shape[-1]
+    pos = _row_positions(positions, B, q.device)
+    k, v = (_gather_pool(p, block_table).unflatten(-1, (-1, D)) for p in (k_pool, v_pool))
+    return gqa_attention(q, k, v, pos.reshape(B, 1), kv_lengths=pos + 1)
+
+
+def paged_flash_decode_q_plain(q, k_pool, v_pool, k_scale, v_scale, block_table,
+                               positions):
+    """The int8 gather route: gathered int8 planes and scales, the int8
+    einsum path with kv_lengths = pos + 1."""
+    B, D = q.shape[0], q.shape[-1]
+    pos = _row_positions(positions, B, q.device)
+    n, bs, kvd = k_pool.shape
+    k, v = (QuantKV(_gather_pool(p, block_table),
+                    gather_scale_pool(sc, block_table, n, kvd // D, bs))
+            for p, sc in ((k_pool, k_scale), (v_pool, v_scale)))
+    return gqa_attention(q, k, v, pos.reshape(B, 1), kv_lengths=pos + 1)
+
+
+def _check_paged_args(q, k_pool, v_pool, block_table, pool_dtypes):
+    B, T = q.shape[:2]
+    if T != 1:
+        raise ValueError(f"paged decode takes one query a row, got T={T}")
+    if k_pool.dim() != 3 or k_pool.shape != v_pool.shape:
+        raise ValueError("pools must be (N, BS, Hkv*D) planes of one shape")
+    _check_kernel_args(q, k_pool, v_pool, pool_dtypes, what="pool")
+    if (block_table.dtype != torch.int32 or block_table.dim() != 2
+            or block_table.shape[0] != B or not block_table.is_contiguous()):
+        raise ValueError(f"block table must be a contiguous (B, MB) int32 tensor, "
+                         f"got {tuple(block_table.shape)} {block_table.dtype}")
+
+
+def _paged_launch(name, q, k_pool, block_table, positions, call):
+    """Shared set-up of the K5 / K6 launches; ``call`` gets the
+    arguments that follow the pools and scales in the C signature."""
+    B, _, H, D = q.shape
+    Hkv = k_pool.shape[2] // D
+    bs, mb = k_pool.shape[1], block_table.shape[1]
+    rows, n_split = paged_splits(B, Hkv, mb * bs)
+    q = q.contiguous()
+    pos = _row_positions(positions, B, q.device)
+    out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if n_split > 1:
+        part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32, device=q.device)
+    code = call(q, block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                None if part_acc is None else part_acc.data_ptr(),
+                None if part_ml is None else part_ml.data_ptr(),
+                B, H, Hkv, D, bs, mb, rows, n_split, 1.0 / D ** 0.5,
+                build.stream_ptr(q.device))
+    build.check(code, name)
+    return out
+
+
+def paged_flash_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, block_table: torch.Tensor,
+                                 positions: torch.Tensor) -> torch.Tensor:
+    """q (B, 1, H, D); pools (N, BS, Hkv*D) f32/bf16; block_table (B, MB)
+    int32; positions (B,) or (B, 1). Row b attends its logical rows s <=
+    positions[b]; table entries past positions[b] // BS are never read.
+    Returns (B, 1, H, D) in q's dtype."""
+    if _on_cpu(q, k_pool, v_pool, block_table):
+        return paged_flash_decode_attention_plain(q, k_pool, v_pool, block_table,
+                                                  positions)
+    _check_paged_args(q, k_pool, v_pool, block_table, _FLOAT_PLANES)
+    out = _paged_launch(
+        "paged_flash_decode_attention", q, k_pool, block_table, positions,
+        lambda qc, *rest: build.lib().tlt_paged_decode(
+            qc.data_ptr(), _is_bf16(qc), k_pool.data_ptr(), v_pool.data_ptr(),
+            _is_bf16(k_pool), *rest))
+    paged_flash_decode_attention.launches += 1
+    return out
+
+
+paged_flash_decode_attention.launches = 0
+
+
+def paged_flash_decode_q(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                         k_scale: torch.Tensor, v_scale: torch.Tensor,
+                         block_table: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """K5 over int8 pools (N, BS, Hkv*D) with f32 scale pools (N*HP, SP):
+    the scale of (block b, kv head h, offset o) is scale[b*HP + h, o].
+    Returns (B, 1, H, D) in q's dtype."""
+    if _on_cpu(q, k_pool, v_pool, k_scale, v_scale, block_table):
+        return paged_flash_decode_q_plain(q, k_pool, v_pool, k_scale, v_scale,
+                                          block_table, positions)
+    _check_paged_args(q, k_pool, v_pool, block_table, (torch.int8,))
+    n, bs, kvd = k_pool.shape
+    hkv = kvd // q.shape[-1]
+    for sc in (k_scale, v_scale):
+        if (sc.dtype != torch.float32 or sc.dim() != 2 or sc.shape != k_scale.shape
+                or sc.shape[0] % n or sc.shape[0] // n < hkv or sc.shape[1] < bs
+                or not sc.is_contiguous()):
+            raise ValueError(f"scale pools must be contiguous f32 (N*HP, SP) with "
+                             f"HP >= {hkv} and SP >= {bs}, got {tuple(sc.shape)} "
+                             f"{sc.dtype}")
+    hp, sp = k_scale.shape[0] // n, k_scale.shape[1]
+    out = _paged_launch(
+        "paged_flash_decode_q", q, k_pool, block_table, positions,
+        lambda qc, *rest: build.lib().tlt_paged_decode_q(
+            qc.data_ptr(), _is_bf16(qc), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), hp, sp, *rest))
+    paged_flash_decode_q.launches += 1
+    return out
+
+
+paged_flash_decode_q.launches = 0

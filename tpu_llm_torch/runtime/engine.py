@@ -33,7 +33,8 @@ from tpu_llm_torch.ops.sampling import select_token
 class ModelAdapter:
     """Uniform model interface for the engine.
 
-    apply(params, tokens (B, T), state, offset) -> (hidden (B, T, E), state)
+    apply(params, tokens (B, T), state, offset) -> (hidden (B, T, E), state);
+      offset an int or a (B,) tensor of per-row positions
     lm_head(params, hidden (B, T, E)) -> logits (B, T, V) float32
     init_state(batch, max_seq) -> state
     """
@@ -42,12 +43,19 @@ class ModelAdapter:
     lm_head: Callable
     init_state: Callable
     bos_id: int = 1
+    # batch axis of every state leaf (per-layer (B, S, Hkv*D) planes: 0)
+    state_batch_axis: int = 0
 
     @classmethod
     def llama(cls, cfg, cache_dtype=torch.float32, bos_id: int = 1,
               device="cuda") -> "ModelAdapter":
         from tpu_llm_torch.models import llama as M
 
+        if cache_dtype in ("int8", torch.int8):
+            raise NotImplementedError(
+                "a dense int8 KV cache is not in this slice of tpu_llm_torch "
+                "(ROADMAP.md queue 1: the dense int8 QuantKV cache); int8 pools "
+                "serve through the paged engine")
         return cls(
             apply=lambda params, tokens, state, offset: M.forward(
                 params, cfg, tokens, state, offset),
