@@ -23,14 +23,23 @@ Phases, one JSON line each:
    with every block past pos // BS and block 0 poisoned (NaN): the output
    must not change. K2 and K4 run again at the shapes serving gives them
    (bf16 q over bf16 planes: K2 at batch 8 with positions 15-1023, K4 over
-   one slot's 1024-row view at offset 256 and 0). K1's library time is
-   torch._weight_int4pack_mm.
-3. cli — the port's `llm` CLI on a tiny GGUF (f32 and Q4_0, written here
-   with the port's own writer), --dtype f32 and native, on the card and on
-   the CPU: the greedy text must be identical.
-4. serve_cli — the port's `llm-serve` on the tiny GGUF, dense, --paged and
-   --paged --cache-dtype int8, on the card and on the CPU: the same
-   completions.
+   one slot's 1024-row view at offset 256 and 0). K1 runs for q4_0 and
+   q8_0 (f32 planes) at every projection and for every other kind (q4_1,
+   q5_0, q5_1, q2_k, q2_kp, q3_k, q3_kp, q6_k, q6_kp; f32 and bf16 planes;
+   random planes in each kind's range) at w13 and wcls, 1 and 8 rows (with
+   row_scale at w13, 8 rows); the default K-quant layouts (q4_1 and q6_k
+   with bf16 planes: what Q4_K and Q6_K load as) at all five shapes. K1's
+   library time is torch._weight_int4pack_mm (q4_0, and q4_1 through its
+   zero point). K7 (the FFN megakernel) runs for q4_0 and q8_0 at 1 and 8
+   rows, timed beside the unfused path it replaces.
+3. cli — the port's `llm` CLI on tiny GGUFs written here with the port's
+   own writer (f32 and Q4_0 with --dtype f32 and native; Q4_K and Q6_K
+   native; Q4_K native --fold-norms; Q4_0 native with
+   TPU_LLM_FFN_MEGAKERNEL set), on the card and on the CPU: the greedy
+   text must be identical, and the card runs must launch K1 (and K7).
+4. serve_cli — the port's `llm-serve` on the tiny f32 GGUF and, native,
+   the tiny Q4_K and Q6_K ones: dense, --paged and --paged --cache-dtype
+   int8, on the card and on the CPU: the same completions.
 5. full width — a TinyLlama-1.1B-shaped Q4_0 model (22 layers, ~0.65 GB
    packed) from seeded random weights built on the card, entered at
    Engine.generate: a 16-token prompt + 128 greedy tokens, a 512-token
@@ -43,6 +52,17 @@ Phases, one JSON line each:
    tokens each; throughput, TTFT, prefix hits, blocks in use, launches and
    the device-busy share of 16 profiled engine steps; one batched decode
    step's logits held against the plain path.
+7. megakernel — the phase-5 model with TPU_LLM_FFN_MEGAKERNEL set:
+   Engine.generate (16 + 128), one decode step's launches (22 ffn_fused),
+   a decode step's logits and the dense BatchEngine's batch-8 decode
+   logits held against the plain path, and 48 decode steps timed with
+   the switch off, on, on, off.
+8. kquant full width — TinyLlama-1.1B width and depth in each K-quant's
+   default layout (Q4_K as q4_1, Q6_K as q6_k, Q5_K as q5_1, Q3_K as
+   q3_kp, Q2_K as q2_kp; bf16 planes), random planes built on the card:
+   Engine.generate (16 + 128, bf16 activations), one decode step's
+   launches, and the first-step logits (f32 activations) held against the
+   plain path.
 Each main-path run starts with every launch count at 0 and reads the
 counts after; a kernel of the path that never launched fails the run.
 
@@ -73,8 +93,13 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t_s`` is the time since the script started."""
+    print(json.dumps({"phase": phase, **kw, "t_s": round(time.perf_counter() - T0, 2)}),
+          flush=True)
 
 
 # -- timing and bounds -------------------------------------------------------
@@ -118,6 +143,50 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# value range of each QTensor kind (before its scale), and the nibble range
+# of the packed kinds (q6_kp: the low nibble; its qh plane adds 2 bits)
+KIND_VALUES = {"q4_0": (-8, 7), "q4_1": (0, 15), "q2_kp": (0, 3), "q3_kp": (-4, 3),
+               "q6_kp": (-32, 31), "q8_0": (-127, 127), "q5_0": (-16, 15), "q5_1": (0, 31),
+               "q2_k": (0, 3), "q3_k": (-4, 3), "q6_k": (-32, 31)}
+NIBBLE_MAX = {"q4_0": 15, "q4_1": 15, "q2_kp": 3, "q3_kp": 7, "q6_kp": 15}
+AFFINE = ("q4_1", "q5_1", "q2_k", "q2_kp")
+NEW_KINDS = ("q4_1", "q5_0", "q5_1", "q2_k", "q2_kp", "q3_k", "q3_kp", "q6_k", "q6_kp")
+# what GGUF Q4_K and Q6_K load as by default (bf16 folded planes)
+DEFAULT_KQ = ("q4_1", "q6_k")
+BLOCK16 = ("q2_k", "q2_kp", "q3_k", "q3_kp", "q6_k", "q6_kp")
+
+
+def random_qtensor(torch, g, kind: str, K: int, N: int, planes: str = "f32",
+                   device: str = "cuda"):
+    """A (K, N) QTensor of ``kind`` with random planes drawn on ``device``
+    from ``g``: values uniform over the kind's range, per-block scales
+    (f32 or bf16 ``planes``) giving weights of std ~0.025 (what Q4_0 with
+    scales in [0.001, 0.01] gives), affine mins centring the values."""
+    from tpu_llm_torch.quant.qtensor import QTensor
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi + 1, shape, generator=g, device=device, dtype=torch.int32)
+
+    lo, hi = KIND_VALUES[kind]
+    if kind in NIBBLE_MAX:
+        m = NIBBLE_MAX[kind]
+        q = (ints(0, m, (K // 2, N)) | (ints(0, m, (K // 2, N)) << 4)).to(torch.uint8)
+    else:
+        q = ints(lo, hi, (K, N)).to(torch.int8)
+    block = 16 if kind in BLOCK16 else 32
+    std_v = (hi - lo + 1) / 12 ** 0.5
+    s = (torch.rand((K // block, N), generator=g, device=device) * 1.8 + 0.2) * (0.025 / std_v)
+    mins = None
+    if kind in AFFINE:
+        mins = -0.5 * (lo + hi) * s
+    elif kind == "q6_kp":
+        mins = ints(0, 255, (K // 4, N)).to(torch.uint8)        # the qh plane
+    if planes == "bf16":
+        s = s.bfloat16()
+        mins = mins.bfloat16() if kind in AFFINE else mins
+    return QTensor(q, s, kind, mins)
+
+
 # -- phase 2: kernels against their plain twins ---------------------------------
 
 def check_kernels(torch, timer):
@@ -130,7 +199,7 @@ def check_kernels(torch, timer):
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     cases = {"qmatmul": [], "flash_decode_attention": [], "flash_decode_fused": [],
-             "flash_gqa_attention": []}
+             "flash_gqa_attention": [], "ffn_fused": []}
 
     def compare(name, got, want, bf16: bool, **info):
         got, want = got.float(), want.float()
@@ -154,33 +223,39 @@ def check_kernels(torch, timer):
     # rows 1 and 8, plus prefill rows 512 on w13
     shapes = {"wqkv": (2048, 2560), "wo": (2048, 2048), "w13": (2048, 11264),
               "w2": (5632, 2048), "wcls": (2048, 32000)}
-    runs = [(n, kn, r) for kn in ("q4_0", "q8_0") for n in shapes for r in (1, 8)]
-    runs += [("w13", kn, 512) for kn in ("q4_0", "q8_0")]
-    for wname, kind, rows in runs:
+    # (q4_0 / q8_0 with f32 planes; then every other kind at w13 and wcls
+    # with f32 and bf16 planes, and the two default K-quant layouts — what
+    # Q4_K and Q6_K load as — over all five shapes; row_scale on w13 at 8 rows)
+    runs = [(n, kn, "f32", r) for kn in ("q4_0", "q8_0") for n in shapes for r in (1, 8)]
+    runs += [("w13", kn, "f32", 512) for kn in ("q4_0", "q8_0")]
+    runs += [(n, kn, pl, r) for kn in NEW_KINDS for pl in ("f32", "bf16")
+             for n in ("w13", "wcls") for r in (1, 8)]
+    runs += [(n, kn, "bf16", r) for kn in DEFAULT_KQ for n in ("wqkv", "wo", "w2")
+             for r in (1, 8)]
+    for wname, kind, planes, rows in runs:
         K, N = shapes[wname]
-        if kind == "q4_0":
-            q = torch.randint(0, 256, (K // 2, N), generator=g, device=dev,
-                              dtype=torch.int32).to(torch.uint8)
-        else:
-            q = torch.randint(-127, 128, (K, N), generator=g, device=dev,
-                              dtype=torch.int32).to(torch.int8)
-        scales = torch.rand((K // 32, N), generator=g, device=dev) * 0.009 + 0.001
-        w = QTensor(q, scales, kind)
+        w = random_qtensor(torch, g, kind, K, N, planes)
         x = torch.randn((rows, K), generator=g, device=dev).bfloat16()
+        rs = None
+        if kind in NEW_KINDS and wname == "w13" and rows == 8:
+            rs = 1 + 0.2 * torch.randn(K, generator=g, device=dev)
         out_dtype = torch.float32 if wname == "wcls" else torch.bfloat16
-        got = qmatmul(x, w, out_dtype=out_dtype)
-        want = qmatmul_plain(x, w, out_dtype=out_dtype)
-        info = dict(weight=wname, kind=kind, rows=rows, K=K, N=N, x="bf16",
-                    out=str(out_dtype).replace("torch.", ""))
+        got = qmatmul(x, w, out_dtype=out_dtype, row_scale=rs)
+        want = qmatmul_plain(x, w, out_dtype=out_dtype, row_scale=rs)
+        info = dict(weight=wname, kind=kind, planes=planes, rows=rows, K=K, N=N, x="bf16",
+                    out=str(out_dtype).replace("torch.", ""), row_scale=rs is not None)
         err, tol = compare("qmatmul", got, want, True, **info)
-        ms = timer.ms(lambda: qmatmul(x, w, out_dtype=out_dtype))
-        plain_ms = timer.ms(lambda: qmatmul_plain(x, w, out_dtype=out_dtype))
+        ms = timer.ms(lambda: qmatmul(x, w, out_dtype=out_dtype, row_scale=rs))
+        plain_ms = timer.ms(lambda: qmatmul_plain(x, w, out_dtype=out_dtype, row_scale=rs))
         lib_ms = None
-        if kind == "q4_0" and rows <= 8:
+        if kind in ("q4_0", "q4_1") and rows <= 8 and rs is None:
             lib_ms = int4pack_ms(torch, timer, x, w, want, info)
         record("qmatmul", info, err, tol, ms, plain_ms, lib_ms,
-               w.nbytes + nbytes(x) + rows * N * got.element_size(),
+               w.nbytes + nbytes(x) + rows * N * got.element_size()
+               + (0 if rs is None else nbytes(rs)),
                2.0 * rows * K * N, "bf16")
+        del w
+    check_ffn_kernel(torch, timer, g, compare, record)
 
     # K2 / K3: TinyLlama decode attention, batch 1, S = 2048, bf16 q,
     # f32 cache (the CLI's default cache dtype)
@@ -312,21 +387,74 @@ def check_serving_shapes(torch, timer, g, compare, record):
                4.0 * H * D * (T * off + T * (T + 1) / 2), "bf16")
 
 
+def enqueue_us(torch, fn, n: int = 20) -> float:
+    """Host microseconds to enqueue one ``fn()`` while the card is busy (a
+    GPU spin first): the host cost of a launch, and whether it waits for
+    the card (a launch that blocks shows the spin's ~10 ms here)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / n * 1e6
+
+
+def check_ffn_kernel(torch, timer, g, compare, record):
+    """K7 at TinyLlama width (E 2048, F 5632), q4_0 and q8_0 with f32
+    planes, 1 and 8 rows: against its twin, and timed beside the unfused
+    path it replaces (K1 on w13, silu * up, K1 on w2, as models/llama.py
+    runs it), on the card and in host enqueue time. No single PyTorch call
+    computes it: library_ms is null."""
+    from tpu_llm_torch.ops.activations import silu
+    from tpu_llm_torch.quant.ffn import ffn_fused, ffn_fused_plain
+    from tpu_llm_torch.quant.qmatmul import qmatmul
+
+    E, F = 2048, 5632
+    for kind in ("q4_0", "q8_0"):
+        w13 = random_qtensor(torch, g, kind, E, 2 * F)
+        w2 = random_qtensor(torch, g, kind, F, E)
+        for rows in (1, 8):
+            x = torch.randn((rows, E), generator=g, device="cuda").bfloat16()
+
+            def unfused():
+                h13 = qmatmul(x, w13)
+                return qmatmul(silu(h13[..., :F]) * h13[..., F:], w2)
+
+            got = ffn_fused(x, w13, w2)
+            info = dict(kind=kind, rows=rows, E=E, F=F, x="bf16", planes="f32")
+            err, tol = compare("ffn_fused", got, ffn_fused_plain(x, w13, w2), True, **info)
+            compare("ffn_fused_vs_unfused", unfused(), got, True, **info)
+            info["unfused_ms"] = timer.ms(unfused)
+            info["enqueue_us"] = enqueue_us(torch, lambda: ffn_fused(x, w13, w2))
+            info["unfused_enqueue_us"] = enqueue_us(torch, unfused)
+            record("ffn_fused", info, err, tol, timer.ms(lambda: ffn_fused(x, w13, w2)),
+                   timer.ms(lambda: ffn_fused_plain(x, w13, w2)), None,
+                   w13.nbytes + w2.nbytes + 2 * nbytes(x), 2.0 * rows * 3 * E * F, "bf16")
+
+
 def int4pack_ms(torch, timer, x, w, want, info):
-    """torch._weight_int4pack_mm on the same q4_0 weight (repacked once,
-    outside the timed region): q4_0 is (n - 8) * d, the op's scale-and-zero
-    form with zero 0; the op keeps its scales in bf16. None, with the
-    reason emitted, when the installed torch lacks the op on the card."""
+    """torch._weight_int4pack_mm on the same q4_0 / q4_1 weight (repacked
+    once, outside the timed region). The op computes (n - 8) * s + z with
+    bf16 scales and zeros: q4_0's (n - 8) * d is that with z = 0, q4_1's
+    n * s + m with z = m + 8 * s; its error against the twin is emitted
+    beside the time. None, with the reason emitted, when the installed
+    torch lacks the op on the card or its result is outside the bf16
+    tolerance of the twin."""
     K2, N = w.q.shape
     q = w.q.reshape(K2 // 16, 16, N).int()
     vals = torch.cat([q & 15, q >> 4], dim=1).reshape(2 * K2, N).t()   # (N, K) 0..15
     try:
         packed = torch._convert_weight_to_int4pack(
             ((vals[:, ::2] << 4) | vals[:, 1::2]).to(torch.uint8).contiguous(), 8)
-        sz = torch.stack([w.scales.bfloat16(), torch.zeros_like(w.scales, dtype=torch.bfloat16)],
-                         dim=-1).contiguous()
+        zeros = (torch.zeros_like(w.scales, dtype=torch.float32) if w.mins is None
+                 else w.mins.float() + 8 * w.scales.float())
+        sz = torch.stack([w.scales.bfloat16(), zeros.bfloat16()], dim=-1).contiguous()
         fn = lambda: torch._weight_int4pack_mm(x, packed, 32, sz)  # noqa: E731
         err = (fn().float() - want.float()).abs().max().item()
+        if not err <= 2e-2 * want.float().abs().max().item():     # the bf16 tolerance
+            raise RuntimeError(f"disagrees with the plain twin: max abs err {err}")
     except (AttributeError, RuntimeError, NotImplementedError) as e:
         emit("library_int4pack", **info, available=False, reason=str(e)[:200])
         return None
@@ -426,15 +554,31 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
 
 # -- phase 3: the CLI on a tiny GGUF ---------------------------------------------
 
-def write_tiny_gguf(path: str, quant: bool, seed: int = 0):
+# Greedy text compared between card and CPU must not sit on a near-tie:
+# bf16 activations turn the kernels' other summation order into one-ulp
+# differences (~1e-3 of max|logit|). A plain random tiny model has a few
+# greedy steps in a hundred whose top-2 logits lie closer than that. The
+# K-quant files therefore carry a bigram bias (a 10x embedding, and 0.3x
+# the embedding of a permuted token added to each classifier row); with
+# seed 1, every greedy step of the CLI (plain and --fold-norms) and of the
+# three serving modes, on the CPU, has its top-2 logits at least 0.06 of
+# max|logit| apart, and the Q4_K and Q6_K files still give different text.
+KQ_TINY_SEED = 1
+
+
+def write_tiny_gguf(path: str, quant: bool, seed: int = 0, ttype: str = None):
     """The recipe of tests/make_tiny_gguf.py::build (same RNG sequence):
-    2 layers, dim 64, 4 heads / 2 kv heads, ffn 96, a 32-token toy vocab."""
+    2 layers, dim 64, 4 heads / 2 kv heads, ffn 96, a 32-token toy vocab.
+    ``ttype`` (a ggml type name, e.g. "Q4_K") stores every projection and
+    the classifier in that type at dim and ffn 256 (K-quant rows are 256)."""
     import numpy as np
 
     from tpu_llm_torch.io import gguf as gg
 
     rng = np.random.default_rng(seed)
     dim, hidden, L, H, KVH, V = 64, 96, 2, 4, 2, 32
+    if ttype is not None:
+        dim = hidden = 256
     kv = dim // H * KVH
     s = lambda *sh: (rng.standard_normal(sh) * 0.08).astype(np.float32)  # noqa: E731
     tokens = ["<unk>", "<s>", "</s>", "▁", "a", "b", "c", "▁ab", "ab", "bc",
@@ -457,6 +601,8 @@ def write_tiny_gguf(path: str, quant: bool, seed: int = 0):
         "tokenizer.ggml.eos_token_id": 2,
     }
     wt = (lambda a: (a, gg.GGML_Q4_0)) if quant else (lambda a: a)
+    if ttype is not None:
+        wt = lambda a: (a, getattr(gg, f"GGML_{ttype}"))  # noqa: E731
     tensors = {
         "token_embd.weight": s(V, dim),
         "output_norm.weight": 1.0 + 0.1 * s(dim),
@@ -472,6 +618,11 @@ def write_tiny_gguf(path: str, quant: bool, seed: int = 0):
         tensors[f"blk.{i}.ffn_gate.weight"] = wt(s(hidden, dim))
         tensors[f"blk.{i}.ffn_up.weight"] = wt(s(hidden, dim))
         tensors[f"blk.{i}.ffn_down.weight"] = wt(s(dim, hidden))
+    if ttype is not None:               # the bigram bias (see KQ_TINY_SEED)
+        emb = tensors["token_embd.weight"] * 10.0
+        perm = np.random.default_rng(1000 + seed).permutation(V)
+        tensors["token_embd.weight"] = emb
+        tensors["output.weight"] = wt(tensors["output.weight"][0] + 0.3 * emb[np.argsort(perm)])
     gg.write_gguf(path, meta, tensors)
 
 
@@ -488,22 +639,56 @@ def run_cli(argv) -> bytes:
     return buf.getvalue()
 
 
+@contextlib.contextmanager
+def switch(name: str):
+    """Set one of the JAX package's layout / path switches for a block."""
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+
+
+def cli_card_vs_cpu(path: str, dtype: str, extra=(), must=()):
+    """The greedy first line of the CLI on the card and on the CPU: equal,
+    and each kernel in ``must`` launched by the card run."""
+    args = ["-m", path, "-p", "abc", "-n", "12", "--dtype", dtype, *extra]
+    reset_counts()
+    card = run_cli(args + ["--device", "cuda"]).split(b"\n")[0]
+    counts = read_counts()
+    cpu = run_cli(args + ["--device", "cpu"]).split(b"\n")[0]
+    row = dict(model=os.path.basename(path), dtype=dtype, flags=list(extra),
+               switches=[k for k in ("TPU_LLM_FFN_MEGAKERNEL", "TPU_LLM_NORM_FOLD")
+                         if os.environ.get(k)],
+               cuda=card.decode(errors="replace"), cpu=cpu.decode(errors="replace"),
+               equal=card == cpu, launches={k: v for k, v in counts.items() if v})
+    emit("cli", **row)
+    if card != cpu or not card.startswith(b"abc") or len(card) <= 3:
+        fail(f"cli greedy output differs between card and CPU: {row}")
+    for k in must:
+        if counts[k] <= 0:
+            fail(f"cli run {row['model']} {extra}: kernel {k} was never launched")
+    return row
+
+
 def check_cli(tmp: str):
     results = []
     for quant in (False, True):
         path = os.path.join(tmp, f"tiny_{'q4_0' if quant else 'f32'}.gguf")
         write_tiny_gguf(path, quant)
         for dtype in ("f32", "native"):
-            args = ["-m", path, "-p", "abc", "-n", "12", "--dtype", dtype]
-            card = run_cli(args + ["--device", "cuda"]).split(b"\n")[0]
-            cpu = run_cli(args + ["--device", "cpu"]).split(b"\n")[0]
-            row = dict(model=os.path.basename(path), dtype=dtype,
-                       cuda=card.decode(errors="replace"),
-                       cpu=cpu.decode(errors="replace"), equal=card == cpu)
-            emit("cli", **row)
-            if card != cpu or not card.startswith(b"abc") or len(card) <= 3:
-                fail(f"cli greedy output differs between card and CPU: {row}")
-            results.append(row)
+            results.append(cli_card_vs_cpu(path, dtype))
+    # K-quant files (native: the packed planes through K1), --fold-norms
+    # (requantized planes), and the FFN megakernel over native Q4_0
+    for ttype in ("Q4_K", "Q6_K"):
+        path = os.path.join(tmp, f"tiny_{ttype}.gguf")
+        write_tiny_gguf(path, False, seed=KQ_TINY_SEED, ttype=ttype)
+        results.append(cli_card_vs_cpu(path, "native", must=("qmatmul",)))
+    results.append(cli_card_vs_cpu(os.path.join(tmp, "tiny_Q4_K.gguf"), "native",
+                                   ["--fold-norms"], must=("qmatmul",)))
+    with switch("TPU_LLM_FFN_MEGAKERNEL"):
+        results.append(cli_card_vs_cpu(os.path.join(tmp, "tiny_q4_0.gguf"), "native",
+                                       must=("qmatmul", "ffn_fused")))
     return results
 
 
@@ -530,35 +715,41 @@ def run_serve_cli(argv):
 def check_serve_cli(tmp: str):
     path = os.path.join(tmp, "tiny_serve_f32.gguf")
     write_tiny_gguf(path, quant=False)
-    base = ["-m", path, "-p", "abc", "-p", "ab", "-p", "abc abc ab", "-p", "abc abc b",
-            "-n", "6", "--batch", "2", "--dtype", "f32"]
-    for mode, flags in SERVE_MODES.items():
-        card, card_sum = run_serve_cli(base + flags + ["--device", "cuda"])
-        cpu, _ = run_serve_cli(base + flags + ["--device", "cpu"])
-        comp = [(r["completion"], r["n_tokens"]) for r in card]
-        row = dict(mode=mode, cuda=comp, cpu=[(r["completion"], r["n_tokens"]) for r in cpu],
-                   summary=card_sum)
-        emit("serve_cli", **row)
-        if row["cuda"] != row["cpu"] or len(comp) != 4 or any(n != 6 for _, n in comp):
-            fail(f"serve_cli completions differ between card and CPU: {row}")
+    files = [(path, "f32")]
+    for ttype in ("Q4_K", "Q6_K"):       # native: the K-quant planes through K1
+        files.append((os.path.join(tmp, f"tiny_serve_{ttype}.gguf"), "native"))
+        write_tiny_gguf(files[-1][0], False, seed=KQ_TINY_SEED, ttype=ttype)
+    for path, dtype in files:
+        base = ["-m", path, "-p", "abc", "-p", "ab", "-p", "abc abc ab", "-p", "abc abc b",
+                "-n", "6", "--batch", "2", "--dtype", dtype]
+        for mode, flags in SERVE_MODES.items():
+            reset_counts()
+            card, card_sum = run_serve_cli(base + flags + ["--device", "cuda"])
+            launched = read_counts()["qmatmul"]
+            cpu, _ = run_serve_cli(base + flags + ["--device", "cpu"])
+            comp = [(r["completion"], r["n_tokens"]) for r in card]
+            row = dict(model=os.path.basename(path), dtype=dtype, mode=mode, cuda=comp,
+                       cpu=[(r["completion"], r["n_tokens"]) for r in cpu],
+                       qmatmul_launches=launched, summary=card_sum)
+            emit("serve_cli", **row)
+            if row["cuda"] != row["cpu"] or len(comp) != 4 or any(n != 6 for _, n in comp):
+                fail(f"serve_cli completions differ between card and CPU: {row}")
+            if dtype == "native" and launched <= 0:
+                fail(f"serve_cli {row['model']} {mode}: qmatmul was never launched")
 
 
 # -- phase 5: full width ---------------------------------------------------------
 
-def synth_tinyllama_q4(torch, cfg, seed: int):
-    """TinyLlama-shaped packed Q4_0 weights built on the card from a seeded
-    generator (fused wqkv / w13 layout, per-layer list)."""
-    from tpu_llm_torch.quant.qtensor import QTensor
-
+def synth_tinyllama(torch, cfg, seed: int, kind: str = "q4_0", planes: str = "f32"):
+    """TinyLlama-shaped packed weights of ``kind`` built on the card from a
+    seeded generator (random_qtensor; fused wqkv / w13 layout, per-layer
+    list)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     E, Fh, V, KV = cfg.dim, cfg.hidden_dim, cfg.vocab_size, cfg.kv_dim
 
     def qt(K, N):
-        q = torch.randint(0, 256, (K // 2, N), generator=g, device="cuda",
-                          dtype=torch.int32).to(torch.uint8)
-        s = torch.rand((K // 32, N), generator=g, device="cuda") * 0.009 + 0.001
-        return QTensor(q, s, "q4_0")
+        return random_qtensor(torch, g, kind, K, N, planes)
 
     ones = lambda: torch.ones(E, device="cuda")  # noqa: E731
     layers = [{"attn_norm": ones(), "ffn_norm": ones(), "wqkv": qt(E, E + 2 * KV),
@@ -566,6 +757,30 @@ def synth_tinyllama_q4(torch, cfg, seed: int):
               for _ in range(cfg.n_layers)]
     emb = (torch.randn((V, E), generator=g, device="cuda") * 0.02).bfloat16()
     return {"tok_emb": emb, "final_norm": ones(), "wcls": qt(E, V), "layers": layers}
+
+
+def first_logits_fn(torch, params, cfg, ids, max_seq: int):
+    """The logits of the prompt's last position (prefill through K1)."""
+    from tpu_llm_torch.models import llama as M
+
+    def fn():
+        c = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
+        x, _ = M.forward(params, cfg, ids, c, 0)
+        return M.lm_head(params, cfg, x[:, -1:])[0, 0]
+    return fn
+
+
+def decode_logits_fn(torch, params, cfg, ids, max_seq: int):
+    """The logits of one decode step after the prompt (one row: the path
+    the FFN megakernel takes)."""
+    from tpu_llm_torch.models import llama as M
+
+    def fn():
+        c = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
+        _, c = M.forward(params, cfg, ids, c, 0)
+        tok = torch.tensor([5], device="cuda")
+        return M.decode_step(params, cfg, tok, c, ids.shape[1])[0][0]
+    return fn
 
 
 def profile_busy(torch, run, steps: int):
@@ -627,32 +842,33 @@ def plain_path():
     """Route the model's kernel calls to their plain twins (on the card)."""
     from tpu_llm_torch.models import llama as M
     from tpu_llm_torch.ops import flash_attention as FA
-    from tpu_llm_torch.quant import linear, qmatmul
-
     from tpu_llm_torch.ops import paged_kv
+    from tpu_llm_torch.quant import ffn, linear, qmatmul
 
     swaps = [(M, n) for n in ("flash_decode_attention", "flash_decode_fused",
                               "flash_gqa_attention")]
     swaps += [(paged_kv, n) for n in ("paged_flash_decode_attention", "paged_flash_decode_q",
                                       "flash_gqa_attention")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in swaps]
-    saved_q = linear.qmatmul
+    saved_q, saved_f = linear.qmatmul, M.ffn_fused
     try:
         linear.qmatmul = qmatmul.qmatmul_plain
+        M.ffn_fused = ffn.ffn_fused_plain
         for mod, n in swaps:
             setattr(mod, n, getattr(FA, n + "_plain"))
         yield
     finally:
-        linear.qmatmul = saved_q
+        linear.qmatmul, M.ffn_fused = saved_q, saved_f
         for mod, n, f in saved:
             setattr(mod, n, f)
 
 
 def counters():
     from tpu_llm_torch.ops import flash_attention as FA
-    from tpu_llm_torch.quant import qmatmul
+    from tpu_llm_torch.quant import ffn, qmatmul
 
-    return {"qmatmul": qmatmul.qmatmul, "flash_decode_attention": FA.flash_decode_attention,
+    return {"qmatmul": qmatmul.qmatmul, "ffn_fused": ffn.ffn_fused,
+            "flash_decode_attention": FA.flash_decode_attention,
             "flash_decode_fused": FA.flash_decode_fused,
             "flash_gqa_attention": FA.flash_gqa_attention,
             "paged_flash_decode_attention": FA.paged_flash_decode_attention,
@@ -668,6 +884,43 @@ def read_counts():
     return {n: f.launches for n, f in counters().items()}
 
 
+def drive_run(torch, name, fn, must, runs, total):
+    """One main-path run: counts set to 0 just before, read just after; a
+    kernel of ``must`` that never launched fails the smoke."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k in must:
+        if counts[k] <= 0:
+            fail(f"main path {name}: kernel {k} was never launched ({counts})")
+    for k, v in counts.items():
+        total[k] += v
+    runs[name] = counts
+    return out, counts
+
+
+def logits_vs_plain(torch, label, kern_fn):
+    """``kern_fn()`` on the kernel path and under plain_path(): top-1 equal
+    and max error <= 2e-2 * max|logit|."""
+    with torch.inference_mode():
+        kern = kern_fn()
+        with plain_path():
+            plain = kern_fn()
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        fail(f"{label}: logits are not finite")
+    err = (kern - plain).abs().max().item()
+    tol = 2e-2 * plain.abs().max().item()
+    top2 = torch.topk(plain, 2).values
+    row = dict(run=label, top1_kernel=int(kern.argmax()), top1_plain=int(plain.argmax()),
+               max_abs_err=err, tol=tol, max_abs_logit=plain.abs().max().item(),
+               top2_gap=(top2[0] - top2[1]).item())
+    emit("logits_vs_plain", **row)
+    if row["top1_kernel"] != row["top1_plain"] or not err <= tol:
+        fail(f"{label}: logits differ from the plain path: {row}")
+    return row
+
+
 def full_width(torch):
     import numpy as np
 
@@ -679,7 +932,7 @@ def full_width(torch):
     # fold_rope_interleave makes of an interleaved checkpoint
     cfg = dataclasses.replace(tinyllama_1_1b(), rope_variant="neox")
     t0 = time.perf_counter()
-    params = synth_tinyllama_q4(torch, cfg, seed=7)
+    params = synth_tinyllama(torch, cfg, seed=7)
     torch.cuda.synchronize()
     packed = sum(w.nbytes for lp in params["layers"] for k, w in lp.items()
                  if k.startswith("w")) + params["wcls"].nbytes
@@ -696,17 +949,7 @@ def full_width(torch):
     runs, total = {}, {n: 0 for n in counters()}
 
     def drive(name, fn, must):
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = read_counts()
-        for k in must:
-            if counts[k] <= 0:
-                fail(f"main path {name}: kernel {k} was never launched ({counts})")
-        for k, v in counts.items():
-            total[k] += v
-        runs[name] = counts
-        return out, counts
+        return drive_run(torch, name, fn, must, runs, total)
 
     # (a) the CLI path: 16-token prompt, 128 greedy tokens
     res, counts = drive("generate_16_128",
@@ -739,26 +982,8 @@ def full_width(torch):
     # first-step logits: kernel path against the plain path, both on the card
     ids = torch.tensor([[1] + prompt16], device="cuda")
 
-    def first_logits():
-        c = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
-        x, _ = M.forward(params, cfg, ids, c, 0)
-        return M.lm_head(params, cfg, x[:, -1:])[0, 0]
-
-    with torch.inference_mode():
-        kern = first_logits()
-        with plain_path():
-            plain = first_logits()
-    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
-        fail("full-width logits are not finite")
-    err = (kern - plain).abs().max().item()
-    tol = 2e-2 * plain.abs().max().item()
-    top2 = torch.topk(plain, 2).values
-    row = dict(top1_kernel=int(kern.argmax()), top1_plain=int(plain.argmax()),
-               max_abs_err=err, tol=tol, max_abs_logit=plain.abs().max().item(),
-               top2_gap=(top2[0] - top2[1]).item())
-    emit("logits_vs_plain", **row)
-    if row["top1_kernel"] != row["top1_plain"] or not err <= tol:
-        fail(f"full-width logits differ from the plain path: {row}")
+    logits_vs_plain(torch, "full_width_q4_0_first_step", first_logits_fn(
+        torch, params, cfg, ids, max_seq))
 
     # (c) the bench path: decode_step(defer_kv=True), 128 steps
     def defer_loop():
@@ -930,6 +1155,159 @@ def serve_full_width(torch, params, cfg):
     return dict(runs=runs, total=total)
 
 
+# -- phase 7: K-quant layouts at full width ------------------------------------------
+
+# (GGUF type, the device kind it loads as by default, plane dtype)
+KQUANT_LAYOUTS = [("Q4_K", "q4_1", "bf16"), ("Q6_K", "q6_k", "bf16"),
+                  ("Q5_K", "q5_1", "bf16"), ("Q3_K", "q3_kp", "bf16"),
+                  ("Q2_K", "q2_kp", "bf16")]
+
+
+def kquant_full_width(torch):
+    """TinyLlama-1.1B width and depth with weights synthesized on the card
+    in each K-quant's default layout: Engine.generate with a 16-token
+    prompt and 128 greedy tokens, the launches of one decode step, and the
+    first-step logits held against the plain path."""
+    import numpy as np
+
+    from tpu_llm_torch.config import tinyllama_1_1b
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+
+    cfg = dataclasses.replace(tinyllama_1_1b(), rope_variant="neox")
+    max_seq = 256
+    prompt16 = [int(t) for t in np.random.default_rng(3).integers(3, cfg.vocab_size, 15)]
+    runs, total, rows = {}, {n: 0 for n in counters()}, []
+    for i, (ttype, kind, planes) in enumerate(KQUANT_LAYOUTS):
+        params = synth_tinyllama(torch, cfg, seed=20 + i, kind=kind, planes=planes)
+        packed = sum(w.nbytes for lp in params["layers"] for k, w in lp.items()
+                     if k.startswith("w")) + params["wcls"].nbytes
+        engine = Engine(params, ModelAdapter.llama(cfg, torch.float32, bos_id=1,
+                                                   device="cuda"),
+                        max_seq=max_seq, device="cuda")
+        engine.generate(prompt16, n_new=8)                     # warm-up
+        res, counts = drive_run(torch, f"kquant_{ttype}_generate_16_128",
+                                lambda: engine.generate(prompt16, n_new=128),
+                                ("qmatmul", "flash_decode_attention"), runs, total)
+        gen = res.tokens[len(prompt16):]
+        if len(gen) != 128 or not all(0 <= t < cfg.vocab_size for t in gen):
+            fail(f"kquant {ttype}: {len(gen)} tokens, some out of range")
+        cache = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
+        _, per_step = drive_run(torch, f"kquant_{ttype}_one_decode_step",
+                                lambda: M.decode_step(params, cfg,
+                                                      torch.tensor([1], device="cuda"),
+                                                      cache, 0),
+                                ("qmatmul",), runs, total)
+        # the logits check runs f32 activations: through 22 layers of random
+        # weights, bf16 rounding amplifies mere summation-order differences
+        # (a CPU run that only reorders the same sums moves the Q4_K
+        # model's bf16 logits by 4% of max|logit|, its f32 ones by 1e-5)
+        ids = torch.tensor([[1] + prompt16], device="cuda")
+        f32_params = dict(params, tok_emb=params["tok_emb"].float())
+        lv = logits_vs_plain(torch, f"kquant_{ttype}_first_step_f32",
+                             first_logits_fn(torch, f32_params, cfg, ids, max_seq))
+        row = dict(layout=ttype, kind=kind, planes=planes, packed_bytes=packed,
+                   decode_tok_s=res.tokens_per_s, ttft_ms=res.ttft_s * 1e3,
+                   launches=counts, per_step=per_step, first_tokens=gen[:8],
+                   logits_err=lv["max_abs_err"], logits_tol=lv["tol"])
+        emit("kquant_full_width", **row)
+        rows.append(row)
+        del engine, params
+        torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, rows=rows)
+
+
+# -- phase 8: the FFN megakernel on the main path -------------------------------------
+
+def megakernel_full_width(torch, params, cfg):
+    """The full-width Q4_0 model with TPU_LLM_FFN_MEGAKERNEL set: generate
+    (16 + 128; decode steps take K7, the 16-token prefill stays unfused),
+    the launches of one decode step, a decode step's logits against the
+    plain path, and the dense BatchEngine at batch 8 (8 requests, 32 new
+    tokens) with its batched decode logits against the plain path."""
+    import numpy as np
+
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.batching import BatchEngine, Request
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+
+    max_seq = 1024
+    runs, total = {}, {n: 0 for n in counters()}
+    prompt16 = [int(t) for t in np.random.default_rng(3).integers(3, cfg.vocab_size, 15)]
+    with switch("TPU_LLM_FFN_MEGAKERNEL"):
+        engine = Engine(params, ModelAdapter.llama(cfg, torch.float32, bos_id=1,
+                                                   device="cuda"),
+                        max_seq=max_seq, device="cuda")
+        engine.generate(prompt16, n_new=8)                     # warm-up
+        res, counts = drive_run(torch, "megakernel_generate_16_128",
+                                lambda: engine.generate(prompt16, n_new=128),
+                                ("qmatmul", "ffn_fused", "flash_decode_attention"),
+                                runs, total)
+        cache = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
+        _, per_step = drive_run(torch, "megakernel_one_decode_step",
+                                lambda: M.decode_step(params, cfg,
+                                                      torch.tensor([1], device="cuda"),
+                                                      cache, 0),
+                                ("qmatmul", "ffn_fused"), runs, total)
+        if per_step["ffn_fused"] != cfg.n_layers:
+            fail(f"megakernel decode step: {per_step}")
+        ids = torch.tensor([[1] + prompt16], device="cuda")
+        lv = logits_vs_plain(torch, "megakernel_decode_step",
+                             decode_logits_fn(torch, params, cfg, ids, max_seq))
+        eng = BatchEngine(params, ModelAdapter.llama(cfg, torch.bfloat16, bos_id=1,
+                                                     device="cuda"),
+                          batch=8, max_seq=max_seq)
+        requests = serve_requests(cfg)
+        eng.submit(Request(prompt=requests[1][:64], max_new=8))   # warm-up
+        eng.run()
+        eng.reset()
+
+        def serve():
+            reqs = [eng.submit(Request(prompt=p, max_new=32)) for p in requests[:8]]
+            t0 = time.perf_counter()
+            steps = eng.run()
+            torch.cuda.synchronize()
+            return reqs, steps, time.perf_counter() - t0
+
+        # end to end, switch off and on in turns over the same steps
+        def decode_ms(n: int = 48) -> float:
+            c = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
+            tok = torch.tensor([1], device="cuda")
+            with torch.inference_mode():
+                M.decode_step(params, cfg, tok, c, 0)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for pos in range(1, n + 1):
+                    logits, c = M.decode_step(params, cfg, tok, c, pos)
+                    tok = torch.argmax(logits, dim=-1)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t) / n * 1e3
+
+        ab = {"on": [], "off": []}
+        for on in (False, True, True, False):
+            if on:
+                ab["on"].append(decode_ms())
+            else:
+                del os.environ["TPU_LLM_FFN_MEGAKERNEL"]
+                ab["off"].append(decode_ms())
+                os.environ["TPU_LLM_FFN_MEGAKERNEL"] = "1"
+        (reqs, steps, wall), bcounts = drive_run(
+            torch, "megakernel_dense_batch8", serve,
+            ("qmatmul", "ffn_fused", "flash_decode_attention"), runs, total)
+        if any(len(r.tokens) != 32 for r in reqs):
+            fail("megakernel dense batch-8: a request gave too few tokens")
+        decode_logits_vs_plain(torch, eng, params, cfg, requests, "dense_bf16_megakernel")
+    row = dict(decode_tok_s=res.tokens_per_s, ttft_ms=res.ttft_s * 1e3, launches=counts,
+               per_step=per_step, logits_err=lv["max_abs_err"], logits_tol=lv["tol"],
+               batch8_tokens_per_s=sum(len(r.tokens) for r in reqs) / wall,
+               batch8_engine_steps=steps, batch8_launches=bcounts,
+               decode_ms_per_step_switch_off=ab["off"], decode_ms_per_step_switch_on=ab["on"])
+    emit("megakernel_full_width", **row)
+    del eng, engine
+    torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, row=row)
+
+
 # -- main --------------------------------------------------------------------------
 
 KERNELS = [
@@ -945,6 +1323,8 @@ KERNELS = [
      "tpu_llm/ops/flash_attention.py:264", dict(pool="bf16")),
     ("paged_flash_decode_q", "tpu_llm_torch/csrc/paged_attention.cu",
      "tpu_llm/ops/flash_attention.py:439", dict(pool="int8")),
+    ("ffn_fused", "tpu_llm_torch/csrc/ffn.cu", "tpu_llm/quant/pallas_ffn.py:49",
+     dict(kind="q4_0", rows=1)),
 ]
 
 
@@ -982,7 +1362,12 @@ def main() -> int:
     fw, params, cfg = full_width(torch)
     emit("full_width", **{k: v for k, v in fw.items() if k != "runs"})
     sv = serve_full_width(torch, params, cfg)
-    total = {k: fw["total"][k] + sv["total"][k] for k in fw["total"]}
+    mk = megakernel_full_width(torch, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    kq = kquant_full_width(torch)
+    total = {k: fw["total"][k] + sv["total"][k] + mk["total"][k] + kq["total"][k]
+             for k in fw["total"]}
 
     out = []
     for name, source, replaces, pick in KERNELS:
@@ -996,6 +1381,12 @@ def main() -> int:
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "case": pick,
         })
+        if name == "qmatmul":     # every kind at w13, one row: ms / bound / error
+            out[-1]["w13_1row"] = {
+                f"{c['kind']}/{c['planes']}": [c["kernel_ms"], c["bound_ms"], c["max_abs_err"]]
+                for c in cases[name] if c["weight"] == "w13" and c["rows"] == 1}
+        if name == "ffn_fused":
+            out[-1]["unfused_ms"] = rep["unfused_ms"]
     print(smi_line)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

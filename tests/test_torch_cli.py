@@ -1,5 +1,6 @@
 """The port's CLI (run on the CPU) prints byte-identical greedy output to
-tpu_llm.runtime.cli on the tiny test GGUF."""
+tpu_llm.runtime.cli on the tiny test GGUFs (f32, Q4_0, and K-quant and
+legacy-quant files), with and without --fold-norms."""
 
 import pytest
 
@@ -44,3 +45,52 @@ def test_sampled_output_reproducible_per_seed(tmp_path, capfdbinary):
 def test_flags_outside_the_slice_are_refused(flag):
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["-m", "x.gguf", *flag])
+
+
+def _first_lines(capfdbinary, args, port_flags=()):
+    capfdbinary.readouterr()
+    assert jcli.main(args) == 0
+    want = capfdbinary.readouterr().out.split(b"\n")[0]
+    assert tcli.main(args + list(port_flags) + ["--device", "cpu"]) == 0
+    got = capfdbinary.readouterr().out.split(b"\n")[0]
+    return got, want
+
+
+@pytest.mark.parametrize("ttype", ["Q4_K", "Q6_K", "Q5_0"])
+def test_quant_gguf_greedy_output_matches_jax(tmp_path, capfdbinary, ttype):
+    from tests.test_torch_kquant import build_quant_gguf
+    from tpu_llm_torch.io import gguf as tgg
+
+    path = str(tmp_path / "q.gguf")
+    build_quant_gguf(path, getattr(tgg, f"GGML_{ttype}"))
+    got, want = _first_lines(capfdbinary, ["-m", path, "-p", "abc", "-n", "12",
+                                           "--dtype", "f32"])
+    assert got == want and got.startswith(b"abc") and len(got) > 3
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "q4_0"])
+def test_fold_norms_matches_jax(tmp_path, capfdbinary, quant):
+    """With dense weights (--dtype f32) the fold is exact up to f32
+    rounding, so --fold-norms keeps the JAX CLI's greedy text. (The JAX
+    CLI's own --fold-norms stops in unstack_layers on the None norms it
+    leaves, so the comparison is with its unfolded run.)"""
+    path = str(tmp_path / "tiny.gguf")
+    build_tiny_gguf(path, quant=quant)
+    got, want = _first_lines(capfdbinary, ["-m", path, "-p", "abc", "-n", "12",
+                                           "--dtype", "f32"], ["--fold-norms"])
+    assert got == want and got.startswith(b"abc") and len(got) > 3
+
+
+def test_fold_norms_native_kquant_runs(tmp_path, capfdbinary):
+    """--fold-norms over native K-quant weights requantizes them (q4_1
+    planes from Q4_K, q6_k) and decodes."""
+    from tests.test_torch_kquant import build_quant_gguf
+    from tpu_llm_torch.io import gguf as tgg
+
+    path = str(tmp_path / "q.gguf")
+    build_quant_gguf(path, tgg.GGML_Q4_K)
+    capfdbinary.readouterr()
+    assert tcli.main(["-m", path, "-p", "abc", "-n", "12", "--dtype", "native",
+                      "--fold-norms", "--device", "cpu"]) == 0
+    out = capfdbinary.readouterr().out
+    assert out.startswith(b"abc") and len(out.split(b"\n")[0]) > 3

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card,
 at edge shapes the smoke run (chip_smoke.py, main-path shapes) does not
-reach: ragged N (N % 4 != 0), odd row counts, head_dim 16 to 128, per-row
+reach: every qmatmul kind with f32 and bf16 planes and row_scale, the FFN
+megakernel at rows 1-8, ragged N (N % 4 != 0), odd row counts, head_dim 16 to 128, per-row
 positions, bf16 caches, tile boundaries; for the paged decode kernels
 position 0 and block boundaries, block sizes 8 to 64, a prefix block
 shared across rows and poisoned unmapped blocks. Marked ``cuda``: each test skips
@@ -284,3 +285,140 @@ def test_paged_engine_card_matches_cpu(gen, cache_dtype, block_size):
         pe.run()
         runs.append([r.tokens for r in reqs])
     assert runs[0] == runs[1]
+
+
+# -- K1 for the legacy and K-quant kinds, and K7 ------------------------------
+
+NEW_KINDS = ["q4_1", "q5_0", "q5_1", "q2_k", "q2_kp", "q3_k", "q3_kp", "q6_k", "q6_kp"]
+
+
+@pytest.mark.parametrize("with_rs", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("K,N,all_rows", [(256, 130, (1, 3, 8, 37)),
+                                          (5632, 2560, (1, 5, 8, 512)),
+                                          (2048, 32000, (1, 8))])
+@pytest.mark.parametrize("planes", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_qmatmul_kinds_match_plain(gen, kind, planes, K, N, all_rows, with_rs):
+    """Random planes in each kind's range (chip_smoke.random_qtensor), f32
+    and bf16 x, rows 1-8, 37 and 512, ragged N, row_scale on and off."""
+    from chip_smoke import random_qtensor
+
+    w = random_qtensor(torch, gen, kind, K, N, planes)
+    rs = (1 + 0.2 * torch.randn(K, generator=gen, device="cuda")) if with_rs else None
+    for rows in all_rows:
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((rows, K), generator=gen, device="cuda").to(xdt)
+            launches = qmatmul.launches
+            got = qmatmul(x, w, row_scale=rs)
+            assert qmatmul.launches == launches + 1 and got.dtype == xdt
+            _close(got, qmatmul_plain(x, w, row_scale=rs), xdt == torch.bfloat16)
+            _close(qmatmul(x, w, out_dtype=torch.float32, row_scale=rs),
+                   qmatmul_plain(x, w, out_dtype=torch.float32, row_scale=rs), False)
+
+
+def test_qmatmul_refuses_scan_slice_planes(gen):
+    """q4_0i4 and int16 f16-bit scale planes come with the --scan slice: on
+    the card the wrapper raises (no plain fallback), naming ROADMAP."""
+    x = torch.zeros((1, 64), device="cuda")
+    i4 = QTensor(torch.zeros((64, 16), dtype=torch.int8, device="cuda"),
+                 torch.ones((2, 16), device="cuda"), "q4_0i4")
+    f16bits = QTensor(torch.zeros((32, 16), dtype=torch.uint8, device="cuda"),
+                      torch.ones((2, 16), dtype=torch.int16, device="cuda"), "q4_0")
+    launches = qmatmul.launches
+    for w in (i4, f16bits):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            qmatmul(x, w)
+    assert qmatmul.launches == launches
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_ffn_fused_kernel_matches_plain(gen, kind, rows):
+    """K7 at TinyLlama width (E 2048, F 5632) against its twin; bf16
+    numerics, tolerance 2e-2 * max|plain|."""
+    from chip_smoke import random_qtensor
+    from tpu_llm_torch.quant.ffn import ffn_fused, ffn_fused_plain
+
+    E, F = 2048, 5632
+    w13 = random_qtensor(torch, gen, kind, E, 2 * F, "f32")
+    w2 = random_qtensor(torch, gen, kind, F, E, "bf16")
+    x = torch.randn((1, rows, E), generator=gen, device="cuda").bfloat16()
+    launches = ffn_fused.launches
+    got = ffn_fused(x, w13, w2)
+    assert ffn_fused.launches == launches + 1 and tuple(got.shape) == (1, rows, E)
+    _close(got, ffn_fused_plain(x, w13, w2), True)
+    again = ffn_fused(x, w13, w2)                 # the barrier words are reset
+    assert torch.equal(again, got)
+
+
+def test_ffn_fused_refuses(gen):
+    from chip_smoke import random_qtensor
+    from tpu_llm_torch.quant.ffn import ffn_fused
+
+    w13 = random_qtensor(torch, gen, "q4_0", 256, 512, "f32")
+    w2 = random_qtensor(torch, gen, "q4_0", 256, 256, "f32")
+    with pytest.raises(ValueError, match="rows"):
+        ffn_fused(torch.zeros((9, 256), device="cuda").bfloat16(), w13, w2)
+    with pytest.raises(ValueError):
+        ffn_fused(torch.zeros((1, 256), device="cuda"), w13, w2)         # f32 x
+
+
+@pytest.mark.parametrize("kind,env", [("q4_k", None), ("q6_k", None), ("q5_1", None),
+                                      ("q2_k", "TPU_LLM_NORM_FOLD"),
+                                      ("q4_0", "TPU_LLM_FFN_MEGAKERNEL")])
+def test_kquant_model_logits_card_match_cpu(gen, monkeypatch, kind, env):
+    """A small llama in each kind, decode steps on the card (kernels) and on
+    the CPU (plain twins), f32 activations (bf16 with the megakernel): the
+    same logits. The switches route the norm weights through row_scale, or
+    the FFN through K7."""
+    from tpu_llm_torch.config import LlamaConfig
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.quant.convert_params import quantize_llama_params
+    from tpu_llm_torch.quant.ffn import ffn_fused
+
+    if env:
+        monkeypatch.setenv(env, "1")
+    cfg = LlamaConfig(dim=256, hidden_dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=100, seq_len=64)
+    g = torch.Generator().manual_seed(3)
+    s = lambda *shape: torch.randn(shape, generator=g) * 0.08  # noqa: E731
+    dt = torch.bfloat16 if env == "TPU_LLM_FFN_MEGAKERNEL" else torch.float32
+    dense = {"tok_emb": s(100, 256).to(dt), "final_norm": 1 + 0.1 * s(256), "wcls": s(256, 100),
+             "layers": [{"attn_norm": 1 + 0.1 * s(256), "ffn_norm": 1 + 0.1 * s(256),
+                         "wq": s(256, 256), "wk": s(256, 128), "wv": s(256, 128),
+                         "wo": s(256, 256), "w1": s(256, 256), "w3": s(256, 256),
+                         "w2": s(256, 256)} for _ in range(2)]}
+    cpu = quantize_llama_params(dense, kind, fuse=True)
+    card = quantize_llama_params(
+        {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in dense.items()
+         if k != "layers"} | {"layers": [{k: v.cuda() for k, v in lp.items()}
+                                         for lp in dense["layers"]]}, kind, fuse=True)
+    launches = ffn_fused.launches
+    cc = M.init_cache(cfg, 1, 64, dtype=dt)
+    gc = M.init_cache(cfg, 1, 64, dtype=dt, device="cuda")
+    for pos, tok in enumerate([1, 7, 42, 99, 3]):
+        want, cc = M.decode_step(cpu, cfg, torch.tensor([tok]), cc, pos)
+        got, gc = M.decode_step(card, cfg, torch.tensor([tok], device="cuda"), gc, pos)
+        if dt == torch.bfloat16:
+            _close(got, want.cuda(), True)
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    assert (ffn_fused.launches > launches) == (env == "TPU_LLM_FFN_MEGAKERNEL")
+
+
+@pytest.mark.parametrize("codec", ["q4_0", "q4_k", "q6_k"])
+def test_linear_k_padded_row_scale_card_match_cpu(gen, codec):
+    """linear.matmul over a pad_k weight (K 768 -> 1024) with row_scale:
+    x and row_scale are zero-padded on the card as on the CPU."""
+    import numpy as np
+
+    from tpu_llm_torch.quant import linear
+    from tpu_llm_torch.quant.qtensor import pad_k, qmap, quantize_tensor
+
+    rng = np.random.default_rng(4)
+    w = pad_k(quantize_tensor(rng.standard_normal((768, 96)).astype(np.float32), codec))
+    x = torch.from_numpy(rng.standard_normal((3, 768)).astype(np.float32))
+    rs = torch.from_numpy((1 + 0.1 * rng.standard_normal(768)).astype(np.float32))
+    want = linear.matmul(x, w, row_scale=rs)
+    got = linear.matmul(x.cuda(), qmap(lambda p: p.cuda(), w), row_scale=rs.cuda())
+    _close(got, want.cuda(), False)

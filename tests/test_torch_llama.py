@@ -14,11 +14,12 @@ from tests.make_tiny_gguf import build as build_tiny_gguf
 from tpu_llm.config import LlamaConfig as JConfig
 from tpu_llm.models import llama as J
 from tpu_llm.quant import qtensor as jq
+from tpu_llm.quant.convert_params import fold_norms_requant as fold_norms_requant_j
 from tpu_llm.quant.convert_params import quantize_llama_params
 from tpu_llm.runtime import engine as jengine
 from tpu_llm_torch.config import LlamaConfig as TConfig
 from tpu_llm_torch.models import llama as T
-from tpu_llm_torch.quant.convert_params import fold_rope_interleave
+from tpu_llm_torch.quant.convert_params import fold_norms_requant, fold_rope_interleave
 from tpu_llm_torch.quant.convert_params import quantize_llama_params as quantize_llama_params_t
 from tpu_llm_torch.quant.qtensor import QTensor
 from tpu_llm_torch.runtime import engine as tengine
@@ -28,11 +29,15 @@ CFG = dict(dim=64, hidden_dim=96, n_layers=2, n_heads=4, n_kv_heads=2,
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-def jax_params(weights: str, seed: int = 0):
+# K-quants need contraction dims of 256
+CFG_K = dict(CFG, dim=256, hidden_dim=256)
+
+
+def jax_params(weights: str, seed: int = 0, cfg=CFG):
     """Random tiny model in the JAX package's (stacked) layout."""
     rng = np.random.default_rng(seed)
-    d, h, L, V = CFG["dim"], CFG["hidden_dim"], CFG["n_layers"], CFG["vocab_size"]
-    kv = d // CFG["n_heads"] * CFG["n_kv_heads"]
+    d, h, L, V = cfg["dim"], cfg["hidden_dim"], cfg["n_layers"], cfg["vocab_size"]
+    kv = d // cfg["n_heads"] * cfg["n_kv_heads"]
     s = lambda *shape: jnp.asarray((rng.standard_normal(shape) * 0.08).astype(np.float32))  # noqa: E731
     params = {
         "tok_emb": s(V, d),
@@ -51,7 +56,8 @@ def jax_params(weights: str, seed: int = 0):
 
 def to_numpy(p):
     if isinstance(p, jq.QTensor):
-        return {"q": np.asarray(p.q), "scales": np.asarray(p.scales), "kind": p.kind}
+        return {"q": np.asarray(p.q), "scales": np.asarray(p.scales), "kind": p.kind,
+                "mins": None if p.mins is None else np.asarray(p.mins)}
     if isinstance(p, dict):
         return {k: to_numpy(v) for k, v in p.items()}
     if isinstance(p, (list, tuple)):
@@ -59,9 +65,26 @@ def to_numpy(p):
     return None if p is None else np.asarray(p)
 
 
-def both(weights: str):
-    jp = jax_params(weights)
+def both(weights: str, cfg=CFG):
+    jp = jax_params(weights, cfg=cfg)
     return jp, T.params_from_numpy(to_numpy(jp))
+
+
+def assert_same_params(a, b):
+    """Port parameter dicts (per-layer lists) equal plane for plane."""
+    for la, lb in zip(a["layers"] + [{k: v for k, v in a.items() if k != "layers"}],
+                      b["layers"] + [{k: v for k, v in b.items() if k != "layers"}]):
+        assert la.keys() == lb.keys()
+        for k, x in la.items():
+            y = lb[k]
+            if isinstance(x, QTensor):
+                assert x.kind == y.kind and torch.equal(x.q, y.q), k
+                assert torch.equal(x.scales, y.scales), k
+                assert (x.mins is None and y.mins is None) or torch.equal(x.mins, y.mins), k
+            elif x is None:
+                assert y is None, k
+            else:
+                assert x.dtype == y.dtype and torch.equal(x, y), k
 
 
 @pytest.mark.parametrize("weights", ["dense", "q4_0", "q8_0"])
@@ -232,3 +255,81 @@ def test_forward_with_offset_vector_matches_jax(weights):
     for i in range(CFG["n_layers"]):
         np.testing.assert_allclose(tc["k"][i].numpy(),
                                    np.asarray(jc["k"][i]).reshape(tc["k"][i].shape), **TOL)
+
+
+# -- K-quant and legacy-quant weights, norm folding --------------------------
+
+def _logits(fwd_params, mod, cfg, toks, jax_side):
+    if jax_side:
+        x, _ = mod.forward(fwd_params, cfg, jnp.asarray(toks), mod.init_cache(cfg, 1, 32),
+                           jnp.int32(0))
+        return np.asarray(mod.lm_head(fwd_params, cfg, x))
+    x, _ = mod.forward(fwd_params, cfg, torch.from_numpy(toks), mod.init_cache(cfg, 1, 32), 0)
+    return mod.lm_head(fwd_params, cfg, x).numpy()
+
+
+@pytest.mark.parametrize("ttype", ["Q4_K", "Q6_K", "Q5_0", "Q4_K_M-mix"])
+def test_quant_gguf_native_matches_jax(tmp_path, ttype):
+    """--dtype native on a K-quant or legacy-quant file: the port's loader
+    gives the planes the JAX loader gives (carried with params_from_numpy),
+    and the port's logits match JAX's forward at bf16 tolerance: top-1
+    equal, error <= 5e-2 * max|logit| (the JAX CPU path rounds each
+    dequantized weight to bf16, the port's kernel path does not; 2-4
+    layers of bf16 activations). The mix is tests/make_tiny_gguf.build_kq
+    (Q4_K, Q6_K for ffn_down and output)."""
+    from tests.make_tiny_gguf import build_kq
+    from tests.test_torch_kquant import build_quant_gguf
+    from tpu_llm_torch.io import gguf as tgg
+
+    path = str(tmp_path / "q.gguf")
+    if ttype == "Q4_K_M-mix":
+        build_kq(path)
+    else:
+        build_quant_gguf(path, getattr(tgg, f"GGML_{ttype}"))
+    jp, jcfg = J.load_gguf(path, dtype_policy="native", fuse=True)
+    tp, tcfg = T.load_gguf(path, dtype_policy="native")
+    assert_same_params(tp, T.params_from_numpy(to_numpy(jp)))
+    toks = np.asarray([[1, 4, 5, 6, 7, 9]], np.int32)
+    got, want = _logits(tp, T, tcfg, toks, False), _logits(jp, J, jcfg, toks, True)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+    assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+
+
+def test_mixed_kinds_under_fusion_raise(tmp_path):
+    from tests.test_torch_kquant import build_quant_gguf
+    from tpu_llm_torch.io import gguf as tgg
+
+    path = str(tmp_path / "mixed.gguf")
+    build_quant_gguf(path, tgg.GGML_Q4_K, mixed=True)
+    with pytest.raises(ValueError, match="blk.0.attn_k.weight is q6_k"):
+        T.load_gguf(path, dtype_policy="native")
+    T.load_gguf(path, dtype_policy="native", fuse=False)     # unfused loads
+    T.load_gguf(path, dtype_policy="f32")                    # dense fuses
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0", "q4_1", "q5_0", "q4_k", "q6_k",
+                                  "q3_k", "q2_k"])
+def test_fold_norms_requant_matches_jax(kind):
+    """fold_norms_requant on the port's parameters gives the JAX package's
+    planes (requantized in each kind), and the same logits."""
+    jp = jax_params(kind, cfg=CFG_K)
+    jcfg, tcfg = JConfig(**CFG_K), TConfig(**CFG_K)
+    jf = fold_norms_requant_j(jp, jcfg)
+    tf = fold_norms_requant(T.params_from_numpy(to_numpy(jp)), tcfg)
+    assert tf["final_norm"] is None and all(lp["attn_norm"] is None for lp in tf["layers"])
+    assert_same_params(tf, T.params_from_numpy(to_numpy(jf)))
+    toks = np.asarray([[1, 4, 9, 16, 25]], np.int32)
+    np.testing.assert_allclose(_logits(tf, T, tcfg, toks, False),
+                               _logits(jf, J, jcfg, toks, True), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q4_k", "q6_k", "q2_k"])
+def test_norm_fold_row_scale_matches_jax(monkeypatch, kind):
+    """TPU_LLM_NORM_FOLD: the norm weights ride the qkv and w13 matmuls as
+    row_scale, in both packages."""
+    monkeypatch.setenv("TPU_LLM_NORM_FOLD", "1")
+    jp, tp = both(kind, cfg=CFG_K)
+    jcfg, tcfg = JConfig(**CFG_K), TConfig(**CFG_K)
+    toks = np.asarray([[3, 1, 4, 1, 5, 9, 2]], np.int32)
+    np.testing.assert_allclose(_logits(tp, T, tcfg, toks, False),
+                               _logits(jp, J, jcfg, toks, True), **TOL)

@@ -1,6 +1,8 @@
 """The plain twin of the port's qmatmul kernel against the Pallas kernel it
 replaces (tpu_llm.quant.pallas_matmul.qmatmul_pallas, interpret mode) on
-the same packed weights, and the linear dispatch against tpu_llm's."""
+the same packed weights — every kind but q4_0i4, f32 and bf16 planes, with
+and without row_scale — and the linear dispatch (row_scale, K-padded
+weights) against tpu_llm's."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from tpu_llm.quant.pallas_matmul import qmatmul_pallas
 from tpu_llm_torch.quant import linear as tlinear
 from tpu_llm_torch.quant import qmatmul as tqm
 from tpu_llm_torch.quant import qtensor as tq
+from tests.test_torch_kquant import to_torch
 
 
 def _pair(kind, K, N, seed):
@@ -81,4 +84,103 @@ def test_linear_matmul_matches_jax(weight):
         jw, tw = jq.quantize_tensor(w, weight), tq.quantize_tensor(w, weight)
     want = np.asarray(jlinear.matmul(jnp.asarray(x), jw))
     got = tlinear.matmul(torch.from_numpy(x), tw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+# -- every other kind of _PALLAS_KINDS but q4_0i4 -----------------------------
+
+# kind -> (codec, layout switch that yields it)
+KIND_SOURCES = {"q4_1": ("q4_1", None), "q5_0": ("q5_0", None), "q5_1": ("q5_1", None),
+                "q2_k": ("q2_k", "TPU_LLM_Q23_INT8"), "q2_kp": ("q2_k", None),
+                "q3_k": ("q3_k", "TPU_LLM_Q23_INT8"), "q3_kp": ("q3_k", None),
+                "q6_k": ("q6_k", None), "q6_kp": ("q6_k", "TPU_LLM_Q6K_PACK")}
+
+
+def _kind_pair(monkeypatch, kind, planes, K=256, N=128, seed=11):
+    """The JAX package's QTensor of ``kind`` with f32 or bf16 scale (and
+    mins) planes, and the same planes as a port QTensor."""
+    codec, switch = KIND_SOURCES[kind]
+    with monkeypatch.context() as m:
+        if switch:
+            m.setenv(switch, "1")
+        if planes == "f32":
+            m.setenv("TPU_LLM_KQ_F32S", "1")
+        w = np.random.default_rng(seed).standard_normal((K, N)).astype(np.float32)
+        jqt = jq.quantize_tensor(w, codec)
+    if planes == "bf16":
+        jqt = jq.pack_scales_bf16(jqt) if kind != "q6_kp" else jqt
+    assert jqt.kind == kind
+    assert str(jqt.scales.dtype) == ("bfloat16" if planes == "bf16" else "float32")
+    return jqt, to_torch(jqt)
+
+
+def _row_scale(with_rs, K=256):
+    if not with_rs:
+        return None, None
+    rs = (1.0 + 0.2 * np.random.default_rng(K).standard_normal(K)).astype(np.float32)
+    return jnp.asarray(rs), torch.from_numpy(rs)
+
+
+@pytest.mark.parametrize("with_rs", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("rows", [1, 3, 8, 37])
+@pytest.mark.parametrize("planes", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", list(KIND_SOURCES))
+def test_kinds_plain_matches_pallas_interpret_f32(monkeypatch, kind, planes, rows, with_rs):
+    jqt, tqt = _kind_pair(monkeypatch, kind, planes)
+    jrs, trs = _row_scale(with_rs)
+    x = np.random.default_rng(rows).standard_normal((rows, 256)).astype(np.float32)
+    want = np.asarray(qmatmul_pallas(jnp.asarray(x), jqt, row_scale=jrs, interpret=True))
+    got = tqm.qmatmul(torch.from_numpy(x), tqt, row_scale=trs)
+    assert got.dtype == torch.float32
+    # the tolerance of tests/test_quant.py for the same kernel and kinds
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("with_rs", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("rows", [1, 3, 8, 37])
+@pytest.mark.parametrize("planes", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", list(KIND_SOURCES))
+def test_kinds_plain_matches_pallas_interpret_bf16(monkeypatch, kind, planes, rows, with_rs):
+    """bf16 activations: both sides accumulate in f32 and round the output
+    to bf16 once, so they differ by at most one bf16 ulp (2^-7 relative)
+    of sums that may differ by the f32 tolerance above (atol 2e-4)."""
+    jqt, tqt = _kind_pair(monkeypatch, kind, planes)
+    jrs, trs = _row_scale(with_rs)
+    xb = jnp.asarray(np.random.default_rng(rows).standard_normal((rows, 256)), jnp.bfloat16)
+    want = np.asarray(qmatmul_pallas(xb, jqt, row_scale=jrs, interpret=True)
+                      .astype(jnp.float32))
+    got = tqm.qmatmul(torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16(), tqt,
+                      row_scale=trs)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7, atol=2e-4)
+
+
+@pytest.mark.parametrize("codec", ["q4_0", "q4_1", "q6_k"])
+def test_linear_matmul_k_padded_matches_jax(codec):
+    """linear.matmul over a pad_k QTensor (K 768 -> 1024) zero-pads x and
+    row_scale: the JAX package's result, and the unpadded one."""
+    rng = np.random.default_rng(8)
+    w = rng.standard_normal((768, 64)).astype(np.float32)
+    x = rng.standard_normal((3, 768)).astype(np.float32)
+    rs = (1.0 + 0.1 * rng.standard_normal(768)).astype(np.float32)
+    jqt, tqt = jq.quantize_tensor(w, codec), tq.quantize_tensor(w, codec)
+    want = np.asarray(jlinear.matmul(jnp.asarray(x), jq.pad_k(jqt), row_scale=jnp.asarray(rs)))
+    got = tlinear.matmul(torch.from_numpy(x), tq.pad_k(tqt), row_scale=torch.from_numpy(rs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    unpadded = tlinear.matmul(torch.from_numpy(x), tqt, row_scale=torch.from_numpy(rs))
+    np.testing.assert_allclose(got.numpy(), unpadded.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("weight", ["dense", "q4_1", "q3_k"])
+def test_linear_row_scale_matches_jax(weight):
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal((256, 96)).astype(np.float32)
+    x = rng.standard_normal((2, 5, 256)).astype(np.float32)
+    rs = (1.0 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+    if weight == "dense":
+        jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    else:
+        jw, tw = jq.quantize_tensor(w, weight), tq.quantize_tensor(w, weight)
+    want = np.asarray(jlinear.matmul(jnp.asarray(x), jw, row_scale=jnp.asarray(rs)))
+    got = tlinear.matmul(torch.from_numpy(x), tw, row_scale=torch.from_numpy(rs))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)

@@ -58,10 +58,16 @@ def test_block_codecs_match_jax(kind):
 
 
 def test_other_kinds_name_their_slice():
+    """Only the --scan program's int4-plane kind and f16-bit (int16) scale
+    planes remain outside the port; both name their ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.quantize_tensor(np.zeros((32, 32), np.float32), "q4_1")
+        tq.quantize_tensor(np.zeros((32, 32), np.float32), "q4_0i4")
+    int16_planes = tq.QTensor(torch.zeros((16, 8), dtype=torch.uint8),
+                              torch.zeros((1, 8), dtype=torch.int16), "q4_0")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.qtensor_from_ggml(tgg.GGML_Q4_K, np.zeros(144, np.uint8), 1, 256)
+        tq.dequantize(int16_planes)
+    with pytest.raises(ValueError):
+        tq.qtensor_from_ggml(tgg.GGML_Q8_1, np.zeros(36, np.uint8), 1, 32)
 
 
 def test_gguf_roundtrip_matches_jax_reader(tmp_path):

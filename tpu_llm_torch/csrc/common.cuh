@@ -30,6 +30,21 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// 4 consecutive bytes of row `row` of a row-major (rows, N) byte plane,
+// columns n0..n0+3, as one little-endian word (zero past N); `vec`: N % 4
+// == 0 and a 4-byte-aligned plane, so one 32-bit load
+__device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ base, int64_t row,
+                                          int n0, int N, bool vec) {
+  if (n0 >= N) return 0;
+  const uint8_t* p = base + row * N + n0;
+  if (vec) return __ldg(reinterpret_cast<const uint32_t*>(p));
+  uint32_t v = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (n0 + c < N) v |= uint32_t(__ldg(p + c)) << (8 * c);
+  return v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

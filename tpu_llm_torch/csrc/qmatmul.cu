@@ -1,24 +1,37 @@
-// Fused dequant-matmul for packed q4_0 / q8_0 weights on Hopper.
+// Fused dequant-matmul for packed block-quantized weights on Hopper.
 //
 // Replaces: tpu_llm/quant/pallas_matmul.py::_qmm_kernel (wrapper
-// qmatmul_pallas) for kinds q4_0 and q8_0 with f32 scale planes.
+// qmatmul_pallas) for every kind it takes but the int4-plane q4_0i4, with
+// f32 or bf16 scale planes, the affine mins plane and the row_scale operand.
 //
-// Computes out (rows, N) = x (rows, K) @ W (K, N), W packed as in
-// tpu_llm_torch/quant/qtensor.py: q4_0 byte (16b + j, n) holds W[32b + j, n]
-// in its low nibble and W[32b + 16 + j, n] in its high nibble, value
-// (nibble - 8) * scale[b, n]; q8_0 value q[k, n] * scale[k / 32, n].
-// Accumulation is f32 for f32 and bf16 activations alike.
+// Computes out (rows, N) = (x * row_scale) (rows, K) @ W (K, N), with W as
+// packed in tpu_llm_torch/quant/qtensor.py: value v[k, n] times the scale of
+// its block (16 or 32 rows), plus the block's min for the affine kinds:
+//   out[r, n] = sum_k x'[r, k] v[k, n] s[k / B, n] + sum_b xs[r, b] m[b, n]
+// where x' = x * row_scale (f32, not rounded) and xs[r, b] the sum of x' over
+// block b. Value planes:
+// - nibble-packed (q4_0, q4_1, q2_kp, q3_kp): byte (16b + j, n) holds
+//   v[32b + j, n] (low nibble) and v[32b + 16 + j, n] (high nibble), minus a
+//   per-kind offset (8, 0, 0, 4);
+// - q6_kp: the same nibbles, plus 2 high bits from the (K/4, N) qh plane
+//   (byte (8b + i, n) bits 2*(r/8).. for row 32b + r, i = r % 8), minus 32;
+// - int8 (q8_0, q5_0, q5_1, q2_k, q3_k, q6_k): v[k, n] = q[k, n].
+// Accumulation is f32 for f32 and bf16 activations alike; bf16 scale and min
+// planes are widened in registers (exact).
 //
-// What bounds it on the H100: at decode (rows 1-8) the weight bytes, 0.5625
-// (q4_0) or 1.125 (q8_0) bytes a weight with the f32 scales, over the
-// 3.35 TB/s of HBM; nothing of the weight is reused. At prefill rows the
-// f32 FMAs on the CUDA cores.
+// What bounds it on the H100: at decode (rows 1-8) the weight bytes, from
+// 0.5625 (q4_0, f32 scales) to 1.125 (q8_0; q6_k with bf16 per-16 scales)
+// bytes a weight, over the 3.35 TB/s of HBM; nothing of the weight is
+// reused. At prefill rows the f32 FMAs on the CUDA cores.
 //
 // Design against that bound:
 // - every weight byte is read once per 8-row tile, 4 columns per 32-bit
 //   load, a warp reading 128 contiguous bytes of a packed row (coalesced);
-//   the nibble unpack happens in registers and the per-block scale is
-//   applied once per 32-row block, not per weight;
+//   the unpack happens in registers and the scales are applied once per
+//   16-row half block (two partial sums a thread), not per weight;
+// - the mins need the block sums of x', which every column shares: the warp
+//   that owns a 32-row block sums its x' once (one row element a lane, a
+//   16-lane shuffle reduction), not once per column;
 // - decode has few columns per matrix (2048 columns = 16 blocks of 128),
 //   so K is split: 8 warps of a block take interleaved 32-row blocks and
 //   reduce through shared memory, and the grid's y dimension splits K
@@ -32,29 +45,78 @@
 
 namespace {
 
+using tlt::load4;
 using tlt::to_f32;
 
 constexpr int kWarps = 8;                 // K slices of one block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 128;                // 32 lanes x 4 columns
 
-// 4 consecutive bytes of packed row `row`, columns n0..n0+3 (zero past N)
-__device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ base,
-                                          int64_t row, int n0, int N, bool vec) {
-  const uint8_t* p = base + row * N + n0;
-  if (vec) return __ldg(reinterpret_cast<const uint32_t*>(p));
-  uint32_t v = 0;
+// value planes: int8 values, nibble-packed, nibble-packed + qh plane
+enum Pack { kInt8 = 0, kNibble = 1, kNibbleQh = 2 };
+
+// 4 scale (or min) values of plane row `row`, columns n0..n0+3, as f32
+// (zero past N); bf16 widens exactly by a 16-bit shift
+__device__ __forceinline__ void load_plane4(const void* __restrict__ plane, int bf16,
+                                            int64_t row, int n0, int N, bool vec,
+                                            float out[4]) {
+  if (n0 >= N) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (n0 + c < N) v |= uint32_t(__ldg(p + c)) << (8 * c);
-  return v;
+    for (int c = 0; c < 4; ++c) out[c] = 0.f;
+    return;
+  }
+  const int64_t o = row * N + n0;
+  if (bf16) {
+    const uint16_t* p = static_cast<const uint16_t*>(plane) + o;
+    if (vec) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      out[0] = __uint_as_float(v.x << 16);
+      out[1] = __uint_as_float(v.x & 0xFFFF0000u);
+      out[2] = __uint_as_float(v.y << 16);
+      out[3] = __uint_as_float(v.y & 0xFFFF0000u);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        out[c] = n0 + c < N ? __uint_as_float(uint32_t(__ldg(p + c)) << 16) : 0.f;
+    }
+  } else {
+    const float* p = static_cast<const float*>(plane) + o;
+    if (vec) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[c] = n0 + c < N ? __ldg(p + c) : 0.f;
+    }
+  }
 }
 
-template <typename XT, int KIND, int ROWS>
+template <int ROWS>
+__device__ __forceinline__ void fma_cols(float (&b)[ROWS][4], const float (&xv)[ROWS],
+                                         const float (&w)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) b[r][c] = fmaf(xv[r], w[c], b[r][c]);
+}
+
+// x'[r, k] for the tile's rows (zero past the last row)
+template <typename XT, int ROWS>
+__device__ __forceinline__ void load_x(const XT* __restrict__ xr, const float* __restrict__ rs,
+                                       int nrows, int K, int k, float (&xv)[ROWS]) {
+  const float s = rs != nullptr ? __ldg(rs + k) : 1.f;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+    xv[r] = r < nrows ? to_f32(xr[(int64_t)r * K + k]) * s : 0.f;
+}
+
+template <typename XT, int PACK, bool B16, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
-           const float* __restrict__ scales, void* __restrict__ out, int out_bf16,
-           float* __restrict__ partial, int rows, int K, int N, int kb_per_split) {
+qmm_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
+           const uint8_t* __restrict__ q, const uint8_t* __restrict__ qh,
+           const void* __restrict__ scales, const void* __restrict__ mins, int s_bf16,
+           int voff, void* __restrict__ out, int out_bf16, float* __restrict__ partial,
+           int rows, int K, int N, int kb_per_split) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n0 = (blockIdx.x * 32 + lane) * 4;
@@ -73,65 +135,99 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
-  if (n0 < N) {
-    for (int kb = kb_begin + warp; kb < kb_end; kb += kWarps) {
-      float blk[ROWS][4];
+  // every lane runs the loop (columns past N load zeros): the block sums
+  // below shuffle across the whole warp
+  for (int kb = kb_begin + warp; kb < kb_end; kb += kWarps) {
+    // partial sums of the first and the second 16 rows of the block
+    float blo[ROWS][4], bhi[ROWS][4];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) blo[r][c] = bhi[r][c] = 0.f;
+    const int k0 = kb * 32;
+    if (PACK != kInt8) {
+#pragma unroll 4
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t b = load4(q, (int64_t)kb * 16 + j, n0, N, vec);
+        uint32_t h = 0;
+        if (PACK == kNibbleQh) h = load4(qh, (int64_t)kb * 8 + (j & 7), n0, N, vec);
+        const int sh = 2 * (j >> 3);          // rows j (low) and j + 16 (high)
+        float xlo[ROWS], xhi[ROWS];
+        load_x<XT, ROWS>(xr, rs, nrows, K, k0 + j, xlo);
+        load_x<XT, ROWS>(xr, rs, nrows, K, k0 + 16 + j, xhi);
+        float wlo[4], whi[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t byte = (b >> (8 * c)) & 0xFFu;
+          uint32_t lo = byte & 0xFu, hi = byte >> 4;
+          if (PACK == kNibbleQh) {
+            const uint32_t hb = (h >> (8 * c)) & 0xFFu;
+            lo |= ((hb >> sh) & 3u) << 4;
+            hi |= ((hb >> (sh + 4)) & 3u) << 4;
+          }
+          wlo[c] = float(int(lo) - voff);
+          whi[c] = float(int(hi) - voff);
+        }
+        fma_cols<ROWS>(blo, xlo, wlo);
+        if (B16) fma_cols<ROWS>(bhi, xhi, whi);
+        else fma_cols<ROWS>(blo, xhi, whi);
+      }
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t blw = load4(q, (int64_t)k0 + j, n0, N, vec);
+        const uint32_t bhw = load4(q, (int64_t)k0 + 16 + j, n0, N, vec);
+        float xlo[ROWS], xhi[ROWS];
+        load_x<XT, ROWS>(xr, rs, nrows, K, k0 + j, xlo);
+        load_x<XT, ROWS>(xr, rs, nrows, K, k0 + 16 + j, xhi);
+        float wlo[4], whi[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          wlo[c] = float(int8_t((blw >> (8 * c)) & 0xFFu));
+          whi[c] = float(int8_t((bhw >> (8 * c)) & 0xFFu));
+        }
+        fma_cols<ROWS>(blo, xlo, wlo);
+        if (B16) fma_cols<ROWS>(bhi, xhi, whi);
+        else fma_cols<ROWS>(blo, xhi, whi);
+      }
+    }
+    // scales: per-16 blocks take plane rows 2kb (first half) and 2kb + 1
+    float slo[4], shi[4];
+    load_plane4(scales, s_bf16, B16 ? 2 * (int64_t)kb : kb, n0, N, vec, slo);
+    if (B16) load_plane4(scales, s_bf16, 2 * (int64_t)kb + 1, n0, N, vec, shi);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[r][c] = fmaf(blo[r][c], slo[c], acc[r][c]);
+        if (B16) acc[r][c] = fmaf(bhi[r][c], shi[c], acc[r][c]);
+      }
+    if (mins != nullptr) {
+      // block sums of x': lane l holds row element k0 + l; lanes 0-15 and
+      // 16-31 reduce separately, giving the two 16-row halves
+      float xs_lo[ROWS], xs_hi[ROWS];
+      float xl[ROWS];
+      load_x<XT, ROWS>(xr, rs, nrows, K, k0 + lane, xl);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float v = xl[r];
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        xs_lo[r] = __shfl_sync(0xffffffffu, v, 0);
+        xs_hi[r] = __shfl_sync(0xffffffffu, v, 16);
+      }
+      float mlo[4], mhi[4];
+      load_plane4(mins, s_bf16, B16 ? 2 * (int64_t)kb : kb, n0, N, vec, mlo);
+      if (B16) load_plane4(mins, s_bf16, 2 * (int64_t)kb + 1, n0, N, vec, mhi);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) blk[r][c] = 0.f;
-      const int k0 = kb * 32;
-      if (KIND == 0) {
-        // q4_0: byte row 16kb + j -> weights k0 + j (lo) and k0 + 16 + j (hi)
-#pragma unroll 4
-        for (int j = 0; j < 16; ++j) {
-          const uint32_t b = load4(q, (int64_t)kb * 16 + j, n0, N, vec);
-          float xlo[ROWS], xhi[ROWS];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            xlo[r] = r < nrows ? to_f32(xr[(int64_t)r * K + k0 + j]) : 0.f;
-            xhi[r] = r < nrows ? to_f32(xr[(int64_t)r * K + k0 + 16 + j]) : 0.f;
-          }
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const uint32_t byte = (b >> (8 * c)) & 0xFFu;
-            const float lo = float(int(byte & 0xFu) - 8);
-            const float hi = float(int(byte >> 4) - 8);
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r)
-              blk[r][c] = fmaf(xhi[r], hi, fmaf(xlo[r], lo, blk[r][c]));
-          }
+        for (int c = 0; c < 4; ++c) {
+          if (B16)
+            acc[r][c] = fmaf(xs_hi[r], mhi[c], fmaf(xs_lo[r], mlo[c], acc[r][c]));
+          else
+            acc[r][c] = fmaf(xs_lo[r] + xs_hi[r], mlo[c], acc[r][c]);
         }
-      } else {
-        // q8_0: one int8 per weight, row k of the plane
-#pragma unroll 4
-        for (int j = 0; j < 32; ++j) {
-          const uint32_t b = load4(q, (int64_t)k0 + j, n0, N, vec);
-          float xv[ROWS];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-            xv[r] = r < nrows ? to_f32(xr[(int64_t)r * K + k0 + j]) : 0.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float w = float(int8_t((b >> (8 * c)) & 0xFFu));
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r) blk[r][c] = fmaf(xv[r], w, blk[r][c]);
-          }
-        }
-      }
-      float s[4];
-      const float* srow = scales + (int64_t)kb * N + n0;
-      if (vec) {
-        const float4 s4 = __ldg(reinterpret_cast<const float4*>(srow));
-        s[0] = s4.x; s[1] = s4.y; s[2] = s4.z; s[3] = s4.w;
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[c] = n0 + c < N ? __ldg(srow + c) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(blk[r][c], s[c], acc[r][c]);
     }
   }
 
@@ -173,45 +269,67 @@ __global__ void qmm_reduce(const float* __restrict__ partial, void* __restrict__
     static_cast<float*>(out)[i] = sum;
 }
 
-template <typename XT, int KIND>
-void launch_rows(const void* x, const uint8_t* q, const float* scales, void* out,
-                 int out_bf16, float* partial, int rows, int K, int N, int ksplit,
-                 int kb_per_split, cudaStream_t st) {
-  const int rt = rows >= 8 ? 8 : rows >= 4 ? 4 : rows >= 2 ? 2 : 1;
-  dim3 grid((N + kCols - 1) / kCols, ksplit, (rows + rt - 1) / rt);
-  const XT* xp = static_cast<const XT*>(x);
-  float* part = ksplit > 1 ? partial : nullptr;
+struct Args {
+  const void* x; const float* rs; const uint8_t* q; const uint8_t* qh;
+  const void* scales; const void* mins; int s_bf16; int voff;
+  void* out; int out_bf16; float* partial; int rows, K, N, ksplit, kb_per_split;
+};
+
+template <typename XT, int PACK, bool B16, int RT>
+void launch_tile(const Args& a, cudaStream_t st) {
+  dim3 grid((a.N + kCols - 1) / kCols, a.ksplit, (a.rows + RT - 1) / RT);
+  qmm_kernel<XT, PACK, B16, RT><<<grid, kThreads, 0, st>>>(
+      static_cast<const XT*>(a.x), a.rs, a.q, a.qh, a.scales, a.mins, a.s_bf16, a.voff,
+      a.out, a.out_bf16, a.ksplit > 1 ? a.partial : nullptr, a.rows, a.K, a.N,
+      a.kb_per_split);
+}
+
+template <typename XT, int PACK, bool B16>
+void launch_rows(const Args& a, cudaStream_t st) {
+  const int rt = a.rows >= 8 ? 8 : a.rows >= 4 ? 4 : a.rows >= 2 ? 2 : 1;
   switch (rt) {
-    case 8: qmm_kernel<XT, KIND, 8><<<grid, kThreads, 0, st>>>(xp, q, scales, out, out_bf16, part, rows, K, N, kb_per_split); break;
-    case 4: qmm_kernel<XT, KIND, 4><<<grid, kThreads, 0, st>>>(xp, q, scales, out, out_bf16, part, rows, K, N, kb_per_split); break;
-    case 2: qmm_kernel<XT, KIND, 2><<<grid, kThreads, 0, st>>>(xp, q, scales, out, out_bf16, part, rows, K, N, kb_per_split); break;
-    default: qmm_kernel<XT, KIND, 1><<<grid, kThreads, 0, st>>>(xp, q, scales, out, out_bf16, part, rows, K, N, kb_per_split); break;
+    case 8: launch_tile<XT, PACK, B16, 8>(a, st); break;
+    case 4: launch_tile<XT, PACK, B16, 4>(a, st); break;
+    case 2: launch_tile<XT, PACK, B16, 2>(a, st); break;
+    default: launch_tile<XT, PACK, B16, 1>(a, st); break;
   }
+}
+
+template <typename XT>
+int launch_kind(const Args& a, int pack, int block, cudaStream_t st) {
+  if (pack == kNibble && block == 32) launch_rows<XT, kNibble, false>(a, st);
+  else if (pack == kNibble && block == 16) launch_rows<XT, kNibble, true>(a, st);
+  else if (pack == kNibbleQh && block == 16) launch_rows<XT, kNibbleQh, true>(a, st);
+  else if (pack == kInt8 && block == 32) launch_rows<XT, kInt8, false>(a, st);
+  else if (pack == kInt8 && block == 16) launch_rows<XT, kInt8, true>(a, st);
+  else return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
-// kind: 0 = q4_0, 1 = q8_0. partial: (ksplit, rows, N) f32 workspace when
+// pack: 0 int8 values, 1 nibble-packed, 2 nibble-packed + qh plane (qh, K/4
+// rows); voff: subtracted from each unpacked value; block: 32 or 16 rows a
+// scale; scales / mins: f32 (s_bf16 0) or bf16 planes, mins may be null;
+// row_scale: (K,) f32 or null. partial: (ksplit, rows, N) f32 workspace when
 // ksplit > 1, else unused. Returns cudaGetLastError() after the launches.
-TLT_API int tlt_qmatmul(const void* x, int x_bf16, const void* q, const void* scales,
-                        int kind, void* out, int out_bf16, void* partial, int rows,
-                        int K, int N, int ksplit, int kb_per_split, void* stream) {
+TLT_API int tlt_qmatmul(const void* x, int x_bf16, const void* row_scale, const void* q,
+                        const void* qh, const void* scales, const void* mins, int s_bf16,
+                        int pack, int voff, int block, void* out, int out_bf16,
+                        void* partial, int rows, int K, int N, int ksplit,
+                        int kb_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* qp = static_cast<const uint8_t*>(q);
-  const float* sp = static_cast<const float*>(scales);
-  float* pp = static_cast<float*>(partial);
-  if (x_bf16) {
-    if (kind == 0) launch_rows<__nv_bfloat16, 0>(x, qp, sp, out, out_bf16, pp, rows, K, N, ksplit, kb_per_split, st);
-    else launch_rows<__nv_bfloat16, 1>(x, qp, sp, out, out_bf16, pp, rows, K, N, ksplit, kb_per_split, st);
-  } else {
-    if (kind == 0) launch_rows<float, 0>(x, qp, sp, out, out_bf16, pp, rows, K, N, ksplit, kb_per_split, st);
-    else launch_rows<float, 1>(x, qp, sp, out, out_bf16, pp, rows, K, N, ksplit, kb_per_split, st);
-  }
+  const Args a{x, static_cast<const float*>(row_scale), static_cast<const uint8_t*>(q),
+               static_cast<const uint8_t*>(qh), scales, mins, s_bf16, voff, out, out_bf16,
+               static_cast<float*>(partial), rows, K, N, ksplit, kb_per_split};
+  const int bad = x_bf16 ? launch_kind<__nv_bfloat16>(a, pack, block, st)
+                         : launch_kind<float>(a, pack, block, st);
+  if (bad) return bad;
   if (ksplit > 1) {
     const int64_t count = (int64_t)rows * N;
     const int threads = 256;
     qmm_reduce<<<(unsigned)((count + threads - 1) / threads), threads, 0, st>>>(
-        pp, out, out_bf16, count, ksplit);
+        static_cast<float*>(partial), out, out_bf16, count, ksplit);
   }
   return (int)cudaGetLastError();
 }

@@ -6,10 +6,10 @@ type, offset) and a data section aligned to ``general.alignment``
 (default 32). Tensor data is memory-mapped; loaders slice per-tensor views
 and decode or repack them lazily.
 
-This slice decodes f32, f16, bf16, Q4_0 and Q8_0 tensors; the directory
-of a file holding other kinds still parses, and decoding such a tensor
-raises ``NotImplementedError`` (quant/blocks.py names the ROADMAP item).
-Multi-part (gguf-split) checkpoints are not in this slice either.
+It decodes and writes f32, f16, bf16, the legacy quants (Q4_0, Q4_1,
+Q5_0, Q5_1, Q8_0) and the K-quants (Q2_K ... Q6_K); any other type
+raises ``ValueError``. Multi-part (gguf-split) checkpoints are not in
+this slice of the port.
 """
 
 from __future__ import annotations
@@ -62,9 +62,9 @@ _TYPE_TRAITS = {
     GGML_F32: (1, 4), GGML_F16: (1, 2), GGML_BF16: (1, 2), GGML_F64: (1, 8),
     GGML_I8: (1, 1), GGML_I16: (1, 2), GGML_I32: (1, 4),
     GGML_Q4_0: (qblocks.QK4_0, qblocks.Q4_0_BLOCK_BYTES),
-    GGML_Q4_1: (32, qblocks.Q4_1_BLOCK_BYTES),
-    GGML_Q5_0: (32, qblocks.Q5_0_BLOCK_BYTES),
-    GGML_Q5_1: (32, qblocks.Q5_1_BLOCK_BYTES),
+    GGML_Q4_1: (qblocks.QK4_1, qblocks.Q4_1_BLOCK_BYTES),
+    GGML_Q5_0: (qblocks.QK5_0, qblocks.Q5_0_BLOCK_BYTES),
+    GGML_Q5_1: (qblocks.QK5_1, qblocks.Q5_1_BLOCK_BYTES),
     GGML_Q8_0: (qblocks.QK8_0, qblocks.Q8_0_BLOCK_BYTES),
     GGML_Q2_K: (qblocks.QK_K, qblocks.Q2_K_BLOCK_BYTES),
     GGML_Q3_K: (qblocks.QK_K, qblocks.Q3_K_BLOCK_BYTES),
@@ -72,6 +72,12 @@ _TYPE_TRAITS = {
     GGML_Q5_K: (qblocks.QK_K, qblocks.Q5_K_BLOCK_BYTES),
     GGML_Q6_K: (qblocks.QK_K, qblocks.Q6_K_BLOCK_BYTES),
 }
+
+
+# block-quant types -> the suffix of their codecs in quant/blocks.py
+QUANT_CODECS = {t: GGML_TYPE_NAMES[t] for t in (
+    GGML_Q4_0, GGML_Q4_1, GGML_Q5_0, GGML_Q5_1, GGML_Q8_0,
+    GGML_Q2_K, GGML_Q3_K, GGML_Q4_K, GGML_Q5_K, GGML_Q6_K)}
 
 
 def ggml_nbytes(ggml_type: int, n_elems: int) -> int:
@@ -223,11 +229,11 @@ class GGUFFile:
         if t.ggml_type == GGML_BF16:
             bits = raw.view(np.uint16).astype(np.uint32) << 16
             return bits.view(np.float32).reshape(t.shape).astype(dtype)
-        if t.ggml_type == GGML_Q4_0:
-            return qblocks.dequantize_q4_0(raw, t.n_elems).reshape(t.shape).astype(dtype)
-        if t.ggml_type == GGML_Q8_0:
-            return qblocks.dequantize_q8_0(raw, t.n_elems).reshape(t.shape).astype(dtype)
-        qblocks.not_in_slice(GGML_TYPE_NAMES.get(t.ggml_type, str(t.ggml_type)))
+        codec = QUANT_CODECS.get(t.ggml_type)
+        if codec is None:
+            raise ValueError(f"unsupported ggml type {t.ggml_type} for tensor {name!r}")
+        deq = getattr(qblocks, f"dequantize_{codec}")
+        return deq(raw, t.n_elems).reshape(t.shape).astype(dtype)
 
     # -- convenience ---------------------------------------------------------
 
@@ -303,13 +309,11 @@ def _encode_tensor(data: np.ndarray, ggml_type: int) -> bytes:
         # round-to-nearest-even bf16 truncation
         rounded = ((f32 + 0x7FFF + ((f32 >> 16) & 1)) >> 16).astype(np.uint16)
         return rounded.tobytes()
-    if ggml_type == GGML_Q4_0:
-        return qblocks.quantize_q4_0(flat.reshape(-1))
-    if ggml_type == GGML_Q8_0:
-        return qblocks.quantize_q8_0(flat.reshape(-1))
+    if ggml_type in QUANT_CODECS:
+        return getattr(qblocks, f"quantize_{QUANT_CODECS[ggml_type]}")(flat.reshape(-1))
     if ggml_type == GGML_I32:
         return flat.astype(np.int32).tobytes()
-    qblocks.not_in_slice(GGML_TYPE_NAMES.get(ggml_type, str(ggml_type)))
+    raise ValueError(f"writer: unsupported ggml type {ggml_type}")
 
 
 def write_gguf(

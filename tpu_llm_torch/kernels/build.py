@@ -39,9 +39,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (all return int = cudaError_t)
 SIGNATURES = {
-    # x, x_bf16, q, scales, kind, out, out_bf16, partial, rows, K, N,
-    # ksplit, kb_per_split, stream
-    "tlt_qmatmul": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # x, x_bf16, row_scale, q, qh, scales, mins, s_bf16, pack, voff, block,
+    # out, out_bf16, partial, rows, K, N, ksplit, kb_per_split, stream
+    "tlt_qmatmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _P, _I, _P, _I, _I, _I, _I, _I, _P],
     # q, q_bf16, k_cache, v_cache, cache_bf16, k_cur, v_cur, pos, out,
     # B, H, Hkv, D, S, sm_scale, stream
     "tlt_flash_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
@@ -59,6 +60,12 @@ SIGNATURES = {
     # sm_scale, stream
     "tlt_paged_decode_q": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # kind, rows -> CTAs of the cooperative launch
+    "tlt_ffn_grid": [_I, _I],
+    # x, q13, s13, s13_bf16, q2, s2, s2_bf16, kind, part_a, g, part_b, out,
+    # bar, rows, E, F, ks_a, kbps_a, ks_b, kbps_b, grid, stream
+    "tlt_ffn": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -8,12 +8,17 @@ then the final norm and ``lm_head``. Numerics follow the reference:
 rmsnorm with eps inside the sqrt, GQA kv head h // G, SwiGLU, an f32
 classifier.
 
-Projections go through quant/linear.matmul (packed q4_0/q8_0 ->
-the qmatmul kernel). Attention routes as ``tpu_llm.models.llama._attend``
-does: decode to the flash decode kernel (K2), prefill to the flash prefill
-kernel (K4) once the einsum path's (B, T, H, S) scores would pass 64 MB,
-else to the plain einsum path; ``defer_kv=True`` decode goes to the fused
-attention + append kernel (K3).
+Projections go through quant/linear.matmul (packed QTensors of every
+kind -> the qmatmul kernel). With ``TPU_LLM_NORM_FOLD`` set the rmsnorm
+weights ride the qkv and w13 projections as their ``row_scale``; with
+``TPU_LLM_FFN_MEGAKERNEL`` set a decode FFN (<= 8 bf16 rows, q4_0/q8_0
+w13 and w2) is one ffn_fused launch (K7) — the JAX package's switches,
+read at the same points (``llama._norm_folded``,
+``llama._use_ffn_megakernel``). Attention routes as
+``tpu_llm.models.llama._attend`` does: decode to the flash decode kernel
+(K2), prefill to the flash prefill kernel (K4) once the einsum path's
+(B, T, H, S) scores would pass 64 MB, else to the plain einsum path;
+``defer_kv=True`` decode goes to the fused attention + append kernel (K3).
 
 The KV cache is a list of per-layer flat (B, S, Hkv*D) planes, written IN
 PLACE (the JAX version threads new arrays through; here a decode step
@@ -28,6 +33,7 @@ attention (the paged engine's hooks, as in the reference).
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -41,6 +47,7 @@ from tpu_llm_torch.ops.flash_attention import (flash_decode_attention,
                                                flash_gqa_attention)
 from tpu_llm_torch.ops.norms import rmsnorm
 from tpu_llm_torch.ops.rope import rope_angles, rotate
+from tpu_llm_torch.quant.ffn import MAX_ROWS, ffn_fused, ffn_ok
 from tpu_llm_torch.quant.linear import matmul
 from tpu_llm_torch.quant.qtensor import QTensor
 
@@ -75,16 +82,34 @@ def _attend(q, kc, vc, positions, offset):
     return gqa_attention(q, kc, vc, positions)
 
 
+def _norm_folded(cfg: LlamaConfig, x, lp, prefix: str):
+    """(rmsnorm(x, w), None), or, with TPU_LLM_NORM_FOLD set, (the
+    weightless rmsnorm, w): the weight then multiplies x inside the next
+    projection as its row_scale."""
+    if not os.environ.get("TPU_LLM_NORM_FOLD"):
+        return rmsnorm(x, lp[f"{prefix}_norm"], cfg.norm_eps), None
+    return rmsnorm(x, None, cfg.norm_eps), lp[f"{prefix}_norm"]
+
+
+def _use_ffn_megakernel(x, lp) -> bool:
+    """The opt-in one-launch FFN (quant/ffn.py): TPU_LLM_FFN_MEGAKERNEL set,
+    bf16 activations, at most 8 rows, fused q4_0/q8_0 w13 and w2."""
+    if not os.environ.get("TPU_LLM_FFN_MEGAKERNEL") or x.dtype != torch.bfloat16:
+        return False
+    B, T, _ = x.shape
+    return B * T <= MAX_ROWS and "w13" in lp and ffn_ok(lp["w13"], lp.get("w2"))
+
+
 def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
            defer_kv: bool, update_fn=None, attn_fn=None):
     B, T, _ = x.shape
-    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    h, rs = _norm_folded(cfg, x, lp, "attn")
     if "wqkv" in lp:
         Q, KV = cfg.q_dim, cfg.kv_dim
-        qkv = matmul(h, lp["wqkv"])
+        qkv = matmul(h, lp["wqkv"], row_scale=rs)
         q, k, v = qkv[..., :Q], qkv[..., Q:Q + KV], qkv[..., Q + KV:]
     else:
-        q, k, v = (matmul(h, lp[n]) for n in ("wq", "wk", "wv"))
+        q, k, v = (matmul(h, lp[n], row_scale=rs) for n in ("wq", "wk", "wv"))
     q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
@@ -102,13 +127,17 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
         attn = (attn_fn or _attend)(q, kc, vc, positions, offset)
     x = x + matmul(attn.reshape(B, T, cfg.q_dim), lp["wo"])
 
-    h = rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
+    h, rs = _norm_folded(cfg, x, lp, "ffn")
+    if _use_ffn_megakernel(x, lp):
+        if rs is not None:       # the megakernel takes the weighted input
+            h = (h.float() * rs).to(h.dtype)
+        return x + ffn_fused(h, lp["w13"], lp["w2"])
     if "w13" in lp:
         F = cfg.hidden_dim
-        h13 = matmul(h, lp["w13"])
+        h13 = matmul(h, lp["w13"], row_scale=rs)
         mid = silu(h13[..., :F]) * h13[..., F:]
     else:
-        mid = silu(matmul(h, lp["w1"])) * matmul(h, lp["w3"])
+        mid = silu(matmul(h, lp["w1"], row_scale=rs)) * matmul(h, lp["w3"], row_scale=rs)
     return x + matmul(mid, lp["w2"])
 
 
@@ -202,12 +231,13 @@ def config_from_gguf(gguf) -> LlamaConfig:
 
 def _load_weight(gguf, name: str, dtype_policy: str, device):
     """One 2D GGUF tensor (out, in) as an x @ W-oriented (in, out) weight:
-    a QTensor (native q4_0/q8_0) or a dense tensor."""
+    a QTensor (native block quants, legacy and K-quants) or a dense
+    tensor."""
     from tpu_llm_torch.io import gguf as gg
     from tpu_llm_torch.quant.qtensor import qtensor_from_ggml
 
     t = gguf.tensors[name]
-    if dtype_policy == "native" and t.ggml_type in (gg.GGML_Q4_0, gg.GGML_Q8_0):
+    if dtype_policy == "native" and t.ggml_type in gg.QUANT_CODECS:
         return qtensor_from_ggml(t.ggml_type, gguf.raw(name), t.shape[0],
                                  t.dims[0], device)
     if dtype_policy == "native" and t.ggml_type == gg.GGML_F16:
@@ -226,9 +256,10 @@ def load_gguf(path_or_gguf, dtype_policy: str = "f32", fuse: bool = True,
     """Load llama weights from a GGUF file onto ``device``.
 
     dtype_policy: "f32" (everything dense f32), "bf16" (dense bf16 weights,
-    f32 norms) or "native" (f16 stays f16, Q4_0/Q8_0 stay packed as
-    QTensors; the embedding is bf16). ``fuse`` concatenates q|k|v and
-    gate|up into single projections."""
+    f32 norms) or "native" (f16 stays f16, block-quantized tensors stay
+    packed as QTensors; the embedding is bf16). ``fuse`` concatenates q|k|v
+    and gate|up into single projections (a ValueError names the tensors
+    where their kinds differ)."""
     from tpu_llm_torch.io.gguf import GGUFFile
     from tpu_llm_torch.quant.convert_params import fuse_llama_layers
 
@@ -250,7 +281,8 @@ def load_gguf(path_or_gguf, dtype_policy: str = "f32", fuse: bool = True,
         for key, pat in _LAYER_TENSORS.items():
             lp[key] = _load_weight(gguf, pat.format(i=i), dtype_policy, device)
         layers.append(lp)
-    params["layers"] = fuse_llama_layers(layers) if fuse else layers
+    params["layers"] = (fuse_llama_layers(layers, lambda i, k: _LAYER_TENSORS[k].format(i=i))
+                        if fuse else layers)
     return params, cfg
 
 
@@ -265,25 +297,27 @@ def _tensor_from_numpy(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree: Params, device="cpu") -> Params:
     """The JAX package's llama parameter pytree, with every array turned
-    into numpy (a QTensor given as {"q", "scales", "kind"}), -> the port's
-    parameters on ``device``. Stacked layers (a dict of (L, ...) arrays)
+    into numpy (a QTensor given as {"q", "scales", "kind", "mins"}), ->
+    the port's parameters on ``device``. Stacked layers (a dict of (L, ...) arrays)
     are split into the per-layer list the port runs."""
     def leaf(v):
         if v is None:
             return None
         if isinstance(v, dict):
+            mins = v.get("mins")
             return QTensor(_tensor_from_numpy(v["q"], device),
-                           _tensor_from_numpy(v["scales"], device), v["kind"])
+                           _tensor_from_numpy(v["scales"], device), v["kind"],
+                           None if mins is None else _tensor_from_numpy(mins, device))
         return _tensor_from_numpy(v, device)
 
     def index(v, i):
         if isinstance(v, dict):
-            return {"q": v["q"][i], "scales": v["scales"][i], "kind": v["kind"]}
-        return v[i]
+            return {k: (a if k == "kind" or a is None else a[i]) for k, a in v.items()}
+        return None if v is None else v[i]
 
     layers = tree["layers"]
     if isinstance(layers, dict):
-        first = next(iter(layers.values()))
+        first = next(v for v in layers.values() if v is not None)
         n = len(first["q"] if isinstance(first, dict) else first)
         layers = [{k: index(v, i) for k, v in layers.items()} for i in range(n)]
     out = {k: leaf(v) for k, v in tree.items() if k != "layers"}

@@ -1,6 +1,7 @@
 """Parameter transforms (``tpu_llm/quant/convert_params.py``): quantize
-dense projections to packed QTensors, fuse q|k|v and gate|up, and fold the
-interleaved-RoPE pairing into the wq/wk columns.
+dense projections to packed QTensors, fuse q|k|v and gate|up, fold the
+interleaved-RoPE pairing into the wq/wk columns, and fold the rmsnorm
+weights into the projections that follow them (``--fold-norms``).
 
 Parameters are a dict: ``tok_emb``, ``final_norm``, ``wcls`` (QTensor,
 tensor or None for tied embeddings) and ``layers``, a list of per-layer
@@ -15,18 +16,35 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from tpu_llm_torch.quant.qtensor import QTensor, quantize_tensor
+from tpu_llm_torch.quant.qtensor import (QTensor, dequantize, pack_q6_k, qmap,
+                                         quantize_tensor)
 
 LLAMA_PROJ_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
 
 def _map_planes(fn, *ws):
     """Apply ``fn`` to dense tensors, or to each plane of same-kind
-    QTensors (q and scales share the N-axis layout)."""
+    QTensors (q, scales and mins share the N-axis layout; so does q6_kp's
+    qh plane in the mins slot)."""
     if isinstance(ws[0], QTensor):
-        return QTensor(fn(*[w.q for w in ws]), fn(*[w.scales for w in ws]),
-                       ws[0].kind)
+        return qmap(fn, *ws)
     return fn(*ws)
+
+
+def _concat_n(names, ws):
+    """Concatenate weights along the output (N) axis. QTensors must share
+    one kind and plane dtype: the JAX package cannot fuse (or stack) mixed
+    kinds either, so a file that mixes them under one fused projection is
+    refused by name."""
+    if any(isinstance(w, QTensor) for w in ws):
+        sig = [(w.kind, w.scales.dtype) if isinstance(w, QTensor) else ("dense", w.dtype)
+               for w in ws]
+        if len(set(sig)) > 1:
+            raise ValueError(
+                "cannot fuse projections of mixed kinds: " + ", ".join(
+                    f"{n} is {k} ({str(d).replace('torch.', '')})"
+                    for n, (k, d) in zip(names, sig)))
+    return _map_planes(lambda *ps: torch.cat(ps, dim=-1), *ws)
 
 
 def quantize_llama_params(params: Dict, kind: str = "q4_0",
@@ -49,17 +67,18 @@ def quantize_llama_params(params: Dict, kind: str = "q4_0",
     return out
 
 
-def fuse_llama_layers(layers: List[Dict]) -> List[Dict]:
+def fuse_llama_layers(layers: List[Dict], name=lambda i, key: f"layer {i} {key}"
+                      ) -> List[Dict]:
     """wq|wk|wv -> wqkv, w1|w3 -> w13, concatenated along the output (N)
-    axis — packing is per column, so QTensor planes concatenate directly."""
-    cat = lambda *ws: _map_planes(lambda *ps: torch.cat(ps, dim=-1), *ws)  # noqa: E731
+    axis — packing is per column, so QTensor planes concatenate directly.
+    ``name(i, key)`` names a tensor in the error for mixed kinds."""
     out = []
-    for lp in layers:
+    for i, lp in enumerate(layers):
         lp = dict(lp)
-        if "wq" in lp:
-            lp["wqkv"] = cat(lp.pop("wq"), lp.pop("wk"), lp.pop("wv"))
-        if "w1" in lp:
-            lp["w13"] = cat(lp.pop("w1"), lp.pop("w3"))
+        for fused, parts in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3"))):
+            if parts[0] in lp:
+                lp[fused] = _concat_n([name(i, p) for p in parts],
+                                      [lp.pop(p) for p in parts])
         out.append(lp)
     return out
 
@@ -101,3 +120,53 @@ def fold_rope_interleave(params: Dict, cfg):
     out = dict(params)
     out["layers"] = [fold_layer(lp) for lp in params["layers"]]
     return out, dataclasses.replace(cfg, rope_variant="neox")
+
+
+# the codec that requantizes each device kind (the JAX package's map)
+_REQUANT_KIND = {"q4_0": "q4_0", "q8_0": "q8_0", "q4_1": "q4_1", "q5_0": "q5_0",
+                 "q5_1": "q5_1", "q2_k": "q2_k", "q2_kp": "q2_k", "q3_k": "q3_k",
+                 "q3_kp": "q3_k", "q6_k": "q6_k", "q6_kp": "q6_k"}
+
+
+def _requant_row_scaled(qt: QTensor, w: np.ndarray) -> QTensor:
+    """diag(w) @ dequantize(qt), requantized in qt's own kind: one extra
+    quantization rounding."""
+    kind = _REQUANT_KIND.get(qt.kind)
+    if kind is None:
+        raise NotImplementedError(f"norm fold for kind {qt.kind}")
+    dense = dequantize(qt, torch.float32).cpu().numpy()
+    out = quantize_tensor(dense * w[:, None], kind, device=qt.device)
+    if qt.kind == "q6_kp" and out.kind == "q6_k":
+        out = pack_q6_k(out)
+    return out
+
+
+def fold_norms_requant(params: Dict, cfg) -> Dict:
+    """Fold the per-layer rmsnorm weights into the projections that follow
+    them: rmsnorm(x, w) @ W == rmsnorm(x, None) @ (diag(w) W). Dense weights
+    fold exactly; QTensors are dequantized, row-scaled and requantized in
+    their own kind (one extra rounding: ``llm --fold-norms`` opts in). The
+    folded norm entries become None (a weightless rmsnorm); final_norm
+    folds into an untied classifier."""
+    def fold_into(w, weight):
+        nw = w.float().cpu().numpy()
+        if isinstance(weight, QTensor):
+            return _requant_row_scaled(weight, nw)
+        return (weight.float() * w.float()[:, None]).to(weight.dtype)
+
+    def fold_layer(lp):
+        out = dict(lp)
+        for norm, keys in (("attn_norm", ("wqkv", "wq", "wk", "wv")),
+                           ("ffn_norm", ("w13", "w1", "w3"))):
+            for k in keys:
+                if k in out:
+                    out[k] = fold_into(lp[norm], out[k])
+            out[norm] = None
+        return out
+
+    out = dict(params)
+    out["layers"] = [fold_layer(lp) for lp in params["layers"]]
+    if params.get("wcls") is not None and params.get("final_norm") is not None:
+        out["wcls"] = fold_into(params["final_norm"], params["wcls"])
+        out["final_norm"] = None
+    return out

@@ -1,37 +1,51 @@
-"""Fused dequant-matmul for packed q4_0 / q8_0 QTensors: the wrapper of the
-CUDA kernel in ``csrc/qmatmul.cu`` and its plain PyTorch twin.
+"""Fused dequant-matmul for packed QTensors: the wrapper of the CUDA kernel
+in ``csrc/qmatmul.cu`` and its plain PyTorch twin.
 
-Replaces ``tpu_llm/quant/pallas_matmul.py::qmatmul_pallas`` for kinds
-q4_0 and q8_0 with f32 scales. ``x (..., K) @ W (K, N) -> (..., N)``,
-accumulated in f32 for f32 and bf16 activations alike — what the Pallas
-kernel computes in interpret mode; the TPU's bf16 MXU pass is not copied.
+Replaces ``tpu_llm/quant/pallas_matmul.py::qmatmul_pallas`` for every kind
+of ``_PALLAS_KINDS`` but q4_0i4, with f32 or bf16 scale (and mins) planes
+and the optional ``row_scale`` operand:
+``(x * row_scale) (..., K) @ W (K, N) -> (..., N)``, with the affine mins
+added as ``(block sums of x * row_scale) @ mins``, accumulated in f32 for
+f32 and bf16 activations alike — what the Pallas kernel computes in
+interpret mode; the TPU's bf16 MXU pass is not copied. Like the Pallas
+kernel, ``x * row_scale`` stays f32 (it is not rounded back to x's dtype).
 
 ``qmatmul`` takes the plain twin for CPU tensors and launches the kernel
-for CUDA tensors, or raises; ``qmatmul.launches`` counts kernel launches.
+for CUDA tensors, or raises (q4_0i4 and int16 f16-bit scale planes come
+with the --scan slice); ``qmatmul.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from tpu_llm_torch.kernels import build
-from tpu_llm_torch.quant.qtensor import QTensor, dequantize
+from tpu_llm_torch.quant.qtensor import SCAN_SLICE, QTensor, dequantize
 
-_KIND_CODE = {"q4_0": 0, "q8_0": 1}
+# kind -> (value plane: 0 int8, 1 nibble-packed, 2 nibble + qh plane;
+#          offset subtracted from each unpacked value)
+_KIND_CODE = {"q4_0": (1, 8), "q4_1": (1, 0), "q2_kp": (1, 0), "q3_kp": (1, 4),
+              "q6_kp": (2, 32), "q8_0": (0, 0), "q5_0": (0, 0), "q5_1": (0, 0),
+              "q2_k": (0, 0), "q3_k": (0, 0), "q6_k": (0, 0)}
 _SM_COUNT = 132          # H100 SXM; the grid aims at ~2 blocks an SM
 _COLS_PER_BLOCK = 128    # csrc/qmatmul.cu kCols
 _ROWS_PER_BLOCK = 8      # largest row tile of the kernel
 _WARPS = 8               # K slices inside one block
 
 
-def qmatmul_plain(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
-    """Dequantize to f32 and multiply in f32."""
+def qmatmul_plain(x: torch.Tensor, qt: QTensor, out_dtype=None,
+                  row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dequantize to f32 (mins included) and multiply in f32; ``row_scale``
+    multiplies x in f32 first."""
     *lead, K = x.shape
     w = dequantize(qt, torch.float32)
-    out = x.reshape(-1, K).float() @ w
-    return out.reshape(*lead, w.shape[1]).to(out_dtype or x.dtype)
+    xf = x.reshape(-1, K).float()
+    if row_scale is not None:
+        xf = xf * row_scale.float()
+    return (xf @ w).reshape(*lead, w.shape[1]).to(out_dtype or x.dtype)
 
 
 def k_split(rows: int, K: int, N: int):
@@ -45,40 +59,74 @@ def k_split(rows: int, K: int, N: int):
     return math.ceil(nkb / kbps), kbps
 
 
-def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
-    """x (..., K) f32 or bf16 @ qt (K, N) -> (..., N) in ``out_dtype``
-    (default x's dtype)."""
-    out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu" and qt.device.type == "cpu":
-        return qmatmul_plain(x, qt, out_dtype)
-    if x.device.type != "cuda" or x.device != qt.device:
-        raise ValueError(f"x on {x.device}, weight on {qt.device}")
-    if qt.kind not in _KIND_CODE or qt.scales.dtype != torch.float32:
-        raise ValueError(f"qmatmul kernel takes q4_0/q8_0 with f32 scales, "
-                         f"got {qt.kind} with {qt.scales.dtype} scales")
-    if x.dtype not in (torch.float32, torch.bfloat16) or \
-            out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"qmatmul kernel takes f32/bf16, got {x.dtype} -> {out_dtype}")
-    *lead, K = x.shape
+def _aligned(t: torch.Tensor, nbytes: int) -> bool:
+    return t.is_contiguous() and t.data_ptr() % nbytes == 0
+
+
+def _check_weight(qt: QTensor, K: int):
+    """Raise ValueError if the kernel does not take this weight: (pack,
+    value offset, block, scales-are-bf16) if it does."""
+    if qt.kind not in _KIND_CODE or qt.scales.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"qmatmul kernel: {qt.kind} with {qt.scales.dtype} scales "
+                         f"is not taken: {SCAN_SLICE}")
     Kq, N = qt.shape
     if K != Kq or K % 32:
         raise ValueError(f"x (..., {K}) @ W ({Kq}, {N}): K must match and be a "
                          f"multiple of 32")
-    if not (qt.q.is_contiguous() and qt.scales.is_contiguous()) \
-            or qt.q.data_ptr() % 4 or qt.scales.data_ptr() % 16:
-        raise ValueError("packed planes must be contiguous and aligned")
+    pack, voff = _KIND_CODE[qt.kind]
+    block = K // qt.scales.shape[0]
+    if block not in (16, 32) or (pack == 2 and block != 16) or \
+            tuple(qt.scales.shape) != (K // block, N):
+        raise ValueError(f"qmatmul kernel: {qt.kind} scales {tuple(qt.scales.shape)} "
+                         f"for K={K}: blocks of 16 or 32 rows (q6_kp: 16)")
+    s_bf16 = qt.scales.dtype == torch.bfloat16
+    if pack == 2:
+        ok = qt.mins is not None and qt.mins.dtype == torch.uint8 and \
+            tuple(qt.mins.shape) == (K // 4, N) and _aligned(qt.mins, 4)
+    elif qt.mins is not None:
+        ok = qt.mins.dtype == qt.scales.dtype and qt.mins.shape == qt.scales.shape \
+            and _aligned(qt.mins, 8 if s_bf16 else 16)
+    else:
+        ok = True
+    if not (ok and _aligned(qt.q, 4) and _aligned(qt.scales, 8 if s_bf16 else 16)):
+        raise ValueError(f"qmatmul kernel: {qt.kind} planes must be contiguous, "
+                         f"aligned and of matching shapes and dtypes")
+    return pack, voff, block, s_bf16
+
+
+def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None,
+            row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(x * row_scale) (..., K) f32 or bf16 @ qt (K, N) -> (..., N) in
+    ``out_dtype`` (default x's dtype)."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu" and qt.device.type == "cpu":
+        return qmatmul_plain(x, qt, out_dtype, row_scale)
+    if x.device.type != "cuda" or x.device != qt.device or \
+            (row_scale is not None and row_scale.device != x.device):
+        raise ValueError(f"x on {x.device}, weight on {qt.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"qmatmul kernel takes f32/bf16, got {x.dtype} -> {out_dtype}")
+    *lead, K = x.shape
+    pack, voff, block, s_bf16 = _check_weight(qt, K)
+    N = qt.shape[1]
+    if row_scale is not None:
+        if tuple(row_scale.shape) != (K,):
+            raise ValueError(f"row_scale {tuple(row_scale.shape)} for K={K}")
+        row_scale = row_scale.float().contiguous()
     x2 = x.reshape(-1, K).contiguous()
     rows = x2.shape[0]
     out = torch.empty((rows, N), dtype=out_dtype, device=x.device)
     ks, kbps = k_split(rows, K, N)
     partial = (torch.empty((ks, rows, N), dtype=torch.float32, device=x.device)
                if ks > 1 else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     code = build.lib().tlt_qmatmul(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), qt.q.data_ptr(),
-        qt.scales.data_ptr(), _KIND_CODE[qt.kind], out.data_ptr(),
-        int(out_dtype == torch.bfloat16),
-        None if partial is None else partial.data_ptr(), rows, K, N, ks, kbps,
-        build.stream_ptr(x.device))
+        x2.data_ptr(), int(x2.dtype == torch.bfloat16), ptr(row_scale), qt.q.data_ptr(),
+        ptr(qt.mins) if pack == 2 else None, qt.scales.data_ptr(),
+        None if pack == 2 else ptr(qt.mins), int(s_bf16), pack, voff, block,
+        out.data_ptr(), int(out_dtype == torch.bfloat16), ptr(partial), rows, K, N,
+        ks, kbps, build.stream_ptr(x.device))
     build.check(code, "qmatmul")
     qmatmul.launches += 1
     return out.reshape(*lead, N)

@@ -3,7 +3,7 @@
 The reference flags -m/--model, -p/--prompt, -s/--tokenizer,
 -t/--temperature, -n/--num_tokens (total incl. prompt echo), -v/--verbose,
 plus --dtype f32|bf16|native, --cache-dtype f32|bf16, --seed, --max-seq,
---rope and --device (cuda unless told otherwise). Any other flag of the
+--rope, --fold-norms and --device (cuda unless told otherwise). Any other flag of the
 JAX package's CLI is refused by argparse. Output contract
 (``tpu_llm/runtime/cli.py``): the streamed raw token bytes, then a blank
 line, the inference time, the decode tokens/second and the TTFT.
@@ -33,6 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dtype", default="f32", choices=["f32", "bf16"])
     p.add_argument("--seed", type=int, default=None,
                    help="sampling seed (default: time-based)")
+    p.add_argument("--fold-norms", action="store_true",
+                   help="fold rmsnorm weights into the projections "
+                        "(quantized weights REQUANTIZE: one extra rounding)")
     p.add_argument("--max-seq", type=int, default=None)
     p.add_argument("--rope", default="interleaved",
                    choices=["interleaved", "neox", "llmf90"],
@@ -59,6 +62,10 @@ def main(argv=None) -> int:
     t_load = time.perf_counter()
     gguf = GGUFFile(args.model)
     params, cfg = load_gguf(gguf, dtype_policy=args.dtype, device=device)
+    if args.fold_norms:
+        from tpu_llm_torch.quant.convert_params import fold_norms_requant
+
+        params = fold_norms_requant(params, cfg)
     tokenizer = (BPETokenizer.from_gguf(gguf)
                  if "tokenizer.ggml.tokens" in gguf.metadata else None)
     if args.rope != "interleaved" and args.rope != cfg.rope_variant:
