@@ -30,13 +30,22 @@ Phases, one JSON line each:
    row_scale at w13, 8 rows); the default K-quant layouts (q4_1 and q6_k
    with bf16 planes: what Q4_K and Q6_K load as) at all five shapes. K1's
    library time is torch._weight_int4pack_mm (q4_0, and q4_1 through its
-   zero point). K7 (the FFN megakernel) runs for q4_0 and q8_0 at 1 and 8
-   rows, timed beside the unfused path it replaces.
+   zero point). K1 on the --scan program's q4_0i4 (to_int4 of q4_0 at
+   every projection, of q4_1 / q3_kp / q2_kp at w13; f32, bf16 and
+   f16-bit int16 planes; 1 and 8 rows), and at the 5 rows of a k = 4
+   verify window (q4_0 and its q4_0i4, every projection). K3 again on
+   bench.py's bf16 (1, 1024, 256) cache at positions 16, 340 and 655. K7
+   (the FFN megakernel) runs for q4_0 and q8_0 at 1 and 8 rows, timed
+   beside the unfused path it replaces.
 3. cli — the port's `llm` CLI on tiny GGUFs written here with the port's
    own writer (f32 and Q4_0 with --dtype f32 and native; Q4_K and Q6_K
    native; Q4_K native --fold-norms; Q4_0 native with
    TPU_LLM_FFN_MEGAKERNEL set), on the card and on the CPU: the greedy
    text must be identical, and the card runs must launch K1 (and K7).
+   Phase scan_cli: --scan (the captured CUDA graph), --spec 3, --scan
+   --spec 3 and --spec 3 --draft on a tiny Q4_0 file with the bigram bias,
+   and --scan on a tiny Q8_0 file with TPU_LLM_FFN_MEGAKERNEL set (K7
+   replayed inside the graph), card against CPU.
 4. serve_cli — the port's `llm-serve` on the tiny f32 GGUF and, native,
    the tiny Q4_K and Q6_K ones: dense, --paged and --paged --cache-dtype
    int8, on the card and on the CPU: the same completions.
@@ -57,7 +66,21 @@ Phases, one JSON line each:
    a decode step's logits and the dense BatchEngine's batch-8 decode
    logits held against the plain path, and 48 decode steps timed with
    the switch off, on, on, off.
-8. kquant full width — TinyLlama-1.1B width and depth in each K-quant's
+8. scan full width — the phase-5 model: the step loop and
+   Engine.generate(use_scan=True) (16 + 128 greedy, f32 cache) give equal
+   tokens; bench.py's program (decode_step(defer_kv=True), bf16 cache of
+   1024 rows, prompt_len 16) over unpack_params_int4 with pack_scales
+   none / f16 / bf16, captured 8 steps a graph and slope-timed at 128 and
+   640 steps, one step's logits held against the plain path, and
+   profiled over 16 steps at positions 336-351; the device
+   busy share over 16 replayed steps (profiled, and the profiled device
+   time over the same replays' unprofiled wall time) beside 16 steps of
+   the step loop; speculation with k = 4 on a repetitive prompt (host
+   and device loops, equal to the plain stream: tokens per verify forward,
+   host reads per forward); the --timings buckets over the q4_0 and the
+   int4-plane weights. A replay adds the
+   launches its graph recorded to each kernel's count.
+9. kquant full width — TinyLlama-1.1B width and depth in each K-quant's
    default layout (Q4_K as q4_1, Q6_K as q6_k, Q5_K as q5_1, Q3_K as
    q3_kp, Q2_K as q2_kp; bf16 planes), random planes built on the card:
    Engine.generate (16 + 128, bf16 activations), one decode step's
@@ -76,6 +99,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -154,6 +178,10 @@ NEW_KINDS = ("q4_1", "q5_0", "q5_1", "q2_k", "q2_kp", "q3_k", "q3_kp", "q6_k", "
 # what GGUF Q4_K and Q6_K load as by default (bf16 folded planes)
 DEFAULT_KQ = ("q4_1", "q6_k")
 BLOCK16 = ("q2_k", "q2_kp", "q3_k", "q3_kp", "q6_k", "q6_kp")
+INT4_PLANES = ("f32", "bf16", "int16")
+# bench.py's program: cache rows, prompt length, the two slope-timed runs
+BENCH_MAX_SEQ, BENCH_PROMPT, BENCH_STEPS = 1024, 16, (128, 640)
+SPEC_K = 4             # draft tokens a verify window at full width
 
 
 def random_qtensor(torch, g, kind: str, K: int, N: int, planes: str = "f32",
@@ -185,6 +213,15 @@ def random_qtensor(torch, g, kind: str, K: int, N: int, planes: str = "f32",
         s = s.bfloat16()
         mins = mins.bfloat16() if kind in AFFINE else mins
     return QTensor(q, s, kind, mins)
+
+
+def int4_weight(torch, g, src: str, K: int, N: int, planes: str):
+    """A random ``src`` weight through to_int4 (the --scan program's q4_0i4),
+    its planes f32, bf16 or f16 bits in int16."""
+    from tpu_llm_torch.quant.qtensor import pack_scales_bf16, pack_scales_f16, to_int4
+
+    w = to_int4(random_qtensor(torch, g, src, K, N, "f32"))
+    return {"f32": w, "bf16": pack_scales_bf16(w), "int16": pack_scales_f16(w)}[planes]
 
 
 # -- phase 2: kernels against their plain twins ---------------------------------
@@ -232,12 +269,24 @@ def check_kernels(torch, timer):
              for n in ("w13", "wcls") for r in (1, 8)]
     runs += [(n, kn, "bf16", r) for kn in DEFAULT_KQ for n in ("wqkv", "wo", "w2")
              for r in (1, 8)]
+    # the --scan program's int4-plane weights (to_int4): from q4_0 at every
+    # projection, from q4_1 (mins) and q3_kp / q2_kp (blocks of 16) at w13;
+    # f32, bf16 and f16-bit (int16) planes
+    runs += [(n, "q4_0i4<q4_0", pl, r) for pl in INT4_PLANES for n in shapes for r in (1, 8)]
+    runs += [("w13", f"q4_0i4<{src}", pl, r) for src in ("q4_1", "q3_kp", "q2_kp")
+             for pl in INT4_PLANES for r in (1, 8)]
+    # the k = 4 verify window of speculation (5 rows): host loop on q4_0,
+    # device loop on its q4_0i4 conversion with f32 planes
+    runs += [(n, kn, "f32", SPEC_K + 1) for kn in ("q4_0", "q4_0i4<q4_0") for n in shapes]
     for wname, kind, planes, rows in runs:
         K, N = shapes[wname]
-        w = random_qtensor(torch, g, kind, K, N, planes)
+        if kind.startswith("q4_0i4<"):
+            w = int4_weight(torch, g, kind.split("<")[1], K, N, planes)
+        else:
+            w = random_qtensor(torch, g, kind, K, N, planes)
         x = torch.randn((rows, K), generator=g, device=dev).bfloat16()
         rs = None
-        if kind in NEW_KINDS and wname == "w13" and rows == 8:
+        if kind not in ("q4_0", "q8_0") and wname == "w13" and rows == 8:
             rs = 1 + 0.2 * torch.randn(K, generator=g, device=dev)
         out_dtype = torch.float32 if wname == "wcls" else torch.bfloat16
         got = qmatmul(x, w, out_dtype=out_dtype, row_scale=rs)
@@ -248,7 +297,8 @@ def check_kernels(torch, timer):
         ms = timer.ms(lambda: qmatmul(x, w, out_dtype=out_dtype, row_scale=rs))
         plain_ms = timer.ms(lambda: qmatmul_plain(x, w, out_dtype=out_dtype, row_scale=rs))
         lib_ms = None
-        if kind in ("q4_0", "q4_1") and rows <= 8 and rs is None:
+        if (kind in ("q4_0", "q4_1") or w.kind == "q4_0i4" and K // w.scales.shape[0] == 32) \
+                and rows <= 8 and rs is None:
             lib_ms = int4pack_ms(torch, timer, x, w, want, info)
         record("qmatmul", info, err, tol, ms, plain_ms, lib_ms,
                w.nbytes + nbytes(x) + rows * N * got.element_size()
@@ -267,13 +317,37 @@ def check_kernels(torch, timer):
     v_cur = torch.randn((B, 1, Hkv * D), generator=g, device=dev).bfloat16()
     it = kc.element_size()
 
-    def sdpa(n_keys):
+    def sdpa(kc, vc, n_keys):
         # one library call over the same cache rows (GQA, no mask needed:
         # every row < n_keys is visible to the one query)
+        S = kc.shape[1]
         k4 = kc.view(B, S, Hkv, D)[:, :n_keys].transpose(1, 2)
         v4 = vc.view(B, S, Hkv, D)[:, :n_keys].transpose(1, 2)
         return lambda: F.scaled_dot_product_attention(
-            q.float().transpose(1, 2), k4, v4, enable_gqa=True)
+            q.to(kc.dtype).transpose(1, 2), k4, v4, enable_gqa=True)
+
+    def check_fused(kc, vc, pos, cache):
+        S, it = kc.shape[1], kc.element_size()
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        info = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, pos=pos, q="bf16", cache=cache)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got, _, _ = FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)
+        want, _, _ = FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)
+        err, tol = compare("flash_decode_fused", got, want, True, **info)
+        for new, old, cur in ((k1, kc, k_cur), (v1, vc, v_cur)):
+            if not torch.equal(new[:, pos], cur[:, 0].to(kc.dtype)):
+                fail(f"flash_decode_fused {info}: row pos is not this step's k/v")
+            rest = torch.ones(S, dtype=torch.bool, device=dev)
+            rest[pos] = False
+            if not torch.equal(new[:, rest], old[:, rest]):
+                fail(f"flash_decode_fused {info}: a row other than pos changed")
+        record("flash_decode_fused", info, err, tol,
+               timer.ms(lambda: FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)),
+               timer.ms(lambda: FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)),
+               timer.ms(sdpa(kc, vc, pos + 1)),
+               nbytes(q) * 2 + 2 * B * pos * Hkv * D * it + nbytes(k_cur, v_cur)
+               + 2 * Hkv * D * it,
+               4.0 * B * H * (pos + 1) * D, "f32")
 
     for pos in (15, 1000, 2047):
         p = torch.tensor([pos], dtype=torch.int32, device=dev)
@@ -284,28 +358,16 @@ def check_kernels(torch, timer):
         record("flash_decode_attention", info, err, tol,
                timer.ms(lambda: FA.flash_decode_attention(q, kc, vc, p)),
                timer.ms(lambda: FA.flash_decode_attention_plain(q, kc, vc, p)),
-               timer.ms(sdpa(pos + 1)),
+               timer.ms(sdpa(kc, vc, pos + 1)),
                nbytes(q) * 2 + 2 * B * (pos + 1) * Hkv * D * it,
                4.0 * B * H * (pos + 1) * D, "f32")
-
-        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-        got, _, _ = FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)
-        want, _, _ = FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)
-        err, tol = compare("flash_decode_fused", got, want, True, **info)
-        for new, old, cur in ((k1, kc, k_cur), (v1, vc, v_cur)):
-            if not torch.equal(new[:, pos], cur[:, 0].float()):
-                fail(f"flash_decode_fused pos={pos}: row pos is not this step's k/v")
-            rest = torch.ones(S, dtype=torch.bool, device=dev)
-            rest[pos] = False
-            if not torch.equal(new[:, rest], old[:, rest]):
-                fail(f"flash_decode_fused pos={pos}: a row other than pos changed")
-        record("flash_decode_fused", info, err, tol,
-               timer.ms(lambda: FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)),
-               timer.ms(lambda: FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)),
-               timer.ms(sdpa(pos + 1)),
-               nbytes(q) * 2 + 2 * B * pos * Hkv * D * it + nbytes(k_cur, v_cur)
-               + 2 * Hkv * D * it,
-               4.0 * B * H * (pos + 1) * D, "f32")
+        check_fused(kc, vc, pos, "f32")
+    # K3 as bench.py's program runs it: a bf16 (1, 1024, 256) cache, the
+    # positions 16-655 of its 640-step run
+    kb = torch.randn((B, BENCH_MAX_SEQ, Hkv * D), generator=g, device=dev).bfloat16()
+    vb = torch.randn((B, BENCH_MAX_SEQ, Hkv * D), generator=g, device=dev).bfloat16()
+    for pos in (BENCH_PROMPT, 340, BENCH_PROMPT + BENCH_STEPS[1] - 1):
+        check_fused(kb, vb, pos, "bf16")
 
     # K4: a 512-token prompt against a 2048-row cache, offset 0
     T = 512
@@ -435,22 +497,25 @@ def check_ffn_kernel(torch, timer, g, compare, record):
 
 
 def int4pack_ms(torch, timer, x, w, want, info):
-    """torch._weight_int4pack_mm on the same q4_0 / q4_1 weight (repacked
-    once, outside the timed region). The op computes (n - 8) * s + z with
-    bf16 scales and zeros: q4_0's (n - 8) * d is that with z = 0, q4_1's
-    n * s + m with z = m + 8 * s; its error against the twin is emitted
-    beside the time. None, with the reason emitted, when the installed
-    torch lacks the op on the card or its result is outside the bf16
-    tolerance of the twin."""
+    """torch._weight_int4pack_mm on the same q4_0 / q4_1 / per-32 q4_0i4
+    weight (repacked once, outside the timed region). The op computes
+    (n - 8) * s + z with bf16 scales and zeros: q4_0's (n - 8) * d is that
+    with z = 0, q4_1's n * s + m with z = m + 8 * s, q4_0i4's (n - 8) * s
+    + m with z = m; its error against the twin is emitted beside the time.
+    None, with the reason emitted, when the installed torch lacks the op on
+    the card or its result is outside the bf16 tolerance of the twin."""
+    from tpu_llm_torch.quant.qtensor import unpack_scales_f16
+
     K2, N = w.q.shape
     q = w.q.reshape(K2 // 16, 16, N).int()
     vals = torch.cat([q & 15, q >> 4], dim=1).reshape(2 * K2, N).t()   # (N, K) 0..15
     try:
         packed = torch._convert_weight_to_int4pack(
             ((vals[:, ::2] << 4) | vals[:, 1::2]).to(torch.uint8).contiguous(), 8)
-        zeros = (torch.zeros_like(w.scales, dtype=torch.float32) if w.mins is None
-                 else w.mins.float() + 8 * w.scales.float())
-        sz = torch.stack([w.scales.bfloat16(), zeros.bfloat16()], dim=-1).contiguous()
+        s = unpack_scales_f16(w.scales)
+        zeros = (torch.zeros_like(s) if w.mins is None
+                 else unpack_scales_f16(w.mins) + (0 if w.kind == "q4_0i4" else 8 * s))
+        sz = torch.stack([s.bfloat16(), zeros.bfloat16()], dim=-1).contiguous()
         fn = lambda: torch._weight_int4pack_mm(x, packed, 32, sz)  # noqa: E731
         err = (fn().float() - want.float()).abs().max().item()
         if not err <= 2e-2 * want.float().abs().max().item():     # the bf16 tolerance
@@ -692,6 +757,26 @@ def check_cli(tmp: str):
     return results
 
 
+def check_scan_cli(tmp: str):
+    """llm --scan, --spec 3, --scan --spec 3 and --spec 3 --draft on the
+    card against the CPU, on a tiny Q4_0 file with the bigram bias (native:
+    the graph loop over q4_0i4 through K1); --scan over a tiny Q8_0 file
+    with TPU_LLM_FFN_MEGAKERNEL set (K7 inside the captured graph)."""
+    results = []
+    q4 = os.path.join(tmp, "tiny_scan_Q4_0.gguf")
+    write_tiny_gguf(q4, False, seed=KQ_TINY_SEED, ttype="Q4_0")
+    for extra, must in ((["--scan"], ("qmatmul", "flash_decode_attention")),
+                        (["--spec", "3"], ("qmatmul",)),
+                        (["--scan", "--spec", "3"], ("qmatmul",)),
+                        (["--spec", "3", "--draft", q4], ("qmatmul",))):
+        results.append(cli_card_vs_cpu(q4, "native", extra, must))
+    q8 = os.path.join(tmp, "tiny_scan_Q8_0.gguf")
+    write_tiny_gguf(q8, False, seed=KQ_TINY_SEED, ttype="Q8_0")
+    with switch("TPU_LLM_FFN_MEGAKERNEL"):
+        results.append(cli_card_vs_cpu(q8, "native", ["--scan"], must=("qmatmul", "ffn_fused")))
+    return results
+
+
 # -- phase 4: llm-serve on the tiny GGUF -------------------------------------------
 
 SERVE_MODES = {"dense": [], "paged": ["--paged", "--block-size", "4"],
@@ -864,15 +949,11 @@ def plain_path():
 
 
 def counters():
-    from tpu_llm_torch.ops import flash_attention as FA
-    from tpu_llm_torch.quant import ffn, qmatmul
+    """The kernel wrappers and their launch counts; a CUDA graph's replay
+    adds the launches it makes (runtime/graphs.py)."""
+    from tpu_llm_torch.runtime.graphs import counted_kernels
 
-    return {"qmatmul": qmatmul.qmatmul, "ffn_fused": ffn.ffn_fused,
-            "flash_decode_attention": FA.flash_decode_attention,
-            "flash_decode_fused": FA.flash_decode_fused,
-            "flash_gqa_attention": FA.flash_gqa_attention,
-            "paged_flash_decode_attention": FA.paged_flash_decode_attention,
-            "paged_flash_decode_q": FA.paged_flash_decode_q}
+    return counted_kernels()
 
 
 def reset_counts():
@@ -1217,6 +1298,227 @@ def kquant_full_width(torch):
     return dict(runs=runs, total=total, rows=rows)
 
 
+# -- phase 9: the graph decode loop at full width -----------------------------------
+
+BENCH_CHUNK = 8        # decode steps in one captured graph of the bench program
+
+
+def graph_profile(torch, captured, steps: int, reset):
+    """torch.profiler over ``steps`` replays of a captured one-step graph,
+    then the same replays timed without the profiler (whose own host cost
+    lowers the profiled busy share): the profiled device time a step over
+    that wall time is the unprofiled busy share. ``reset()`` rewinds the
+    graph's position before each run."""
+    reset()
+    prof = profile_busy(torch, lambda: [captured() for _ in range(steps)], steps)
+    reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        captured()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / steps * 1e3
+    prof["unprofiled_wall_ms_per_step"] = wall_ms
+    if "device_ms_per_step" in prof:
+        prof["device_busy_share_unprofiled"] = prof["device_ms_per_step"] / wall_ms
+    return prof
+
+
+def bench_step_logits_fn(torch, p4, cfg, ids):
+    """One step of bench.py's program after the prompt ``ids``: the prompt
+    prefilled into a bf16 cache of BENCH_MAX_SEQ rows, then
+    decode_step(defer_kv=True) at its length (K3 on the bf16 cache, K1 on
+    the int4-plane weights)."""
+    from tpu_llm_torch.models import llama as M
+
+    def fn():
+        c = M.init_cache(cfg, 1, BENCH_MAX_SEQ, torch.bfloat16, "cuda")
+        _, c = M.forward(p4, cfg, ids, c, 0)
+        tok = torch.tensor([5], device="cuda")
+        pos = torch.full((1,), ids.shape[1], dtype=torch.int32, device="cuda")
+        return M.decode_step(p4, cfg, tok, c, pos, defer_kv=True)[0][0]
+    return fn
+
+
+def bench_program(torch, params, cfg, pack, ids, runs, total):
+    """bench.py's program: decode_step(defer_kv=True) over
+    unpack_params_int4(params, pack_scales=pack), a bf16 cache of
+    BENCH_MAX_SEQ rows, prompt_len BENCH_PROMPT, greedy feedback on the
+    device; BENCH_CHUNK steps captured in one graph and replayed,
+    slope-timed at BENCH_STEPS. One step after the prompt ``ids`` is held
+    against the plain path first."""
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.quant.convert_params import unpack_params_int4
+    from tpu_llm_torch.runtime.graphs import CapturedStep
+    from tpu_llm_torch.runtime.timing import slope_time_s
+
+    p4 = unpack_params_int4(params, pack_scales=pack)
+    label = f"scan_bench_defer_kv_{pack or 'none'}"
+    lv = logits_vs_plain(torch, f"{label}_step", bench_step_logits_fn(torch, p4, cfg, ids))
+    cache = M.init_cache(cfg, 1, BENCH_MAX_SEQ, torch.bfloat16, "cuda")
+    tok = torch.ones(1, dtype=torch.long, device="cuda")
+    pos = torch.full((1,), BENCH_PROMPT, dtype=torch.int32, device="cuda")
+    logits = torch.zeros((1, cfg.vocab_size), device="cuda")
+
+    def step():
+        for _ in range(BENCH_CHUNK):
+            out, _ = M.decode_step(p4, cfg, tok, cache, pos, defer_kv=True)
+            logits.copy_(out)
+            tok.copy_(torch.argmax(out, dim=-1))
+            pos.add_(1)
+
+    with torch.inference_mode():
+        cap = CapturedStep(step, "cuda", warmup=1)
+
+        def make(n):
+            def run():
+                pos.fill_(BENCH_PROMPT)
+                tok.fill_(1)
+                for _ in range(n // BENCH_CHUNK):
+                    cap()
+                tok.item()
+            return run
+
+        sec, counts = drive_run(torch, label, lambda: slope_time_s(make, *BENCH_STEPS),
+                                ("qmatmul", "flash_decode_fused"), runs, total)
+
+        def rewind():            # positions 336-351: the middle of the 640-step run
+            pos.fill_(336)
+            tok.fill_(1)
+
+        prof = graph_profile(torch, cap, 2, rewind)          # per replay of BENCH_CHUNK steps
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: logits are not finite")
+    scale_bytes = sum(w.scales.numel() * w.scales.element_size()
+                      for lp in p4["layers"] for k, w in lp.items() if k.startswith("w"))
+    return dict(pack_scales=pack or "none", ms_per_step=sec * 1e3, tok_s=1.0 / sec,
+                launches=counts, per_replay=cap.per_replay, steps_per_replay=BENCH_CHUNK,
+                layer_scale_bytes=scale_bytes, profile_per_replay=prof,
+                step_logits_err=lv["max_abs_err"], step_logits_tol=lv["tol"])
+
+
+def scan_full_width(torch, params, cfg):
+    """The phase-5 model (TinyLlama-1.1B width and depth, Q4_0 from seed 7):
+    (a) the step loop and (b) Engine.generate(use_scan=True), a 16-token
+    prompt and 128 greedy tokens, f32 cache: equal token lists; (c) the
+    bench program with pack_scales none / f16 / bf16; (d) the device busy
+    share over 16 replayed steps against 16 steps of the step loop; (e)
+    speculation with k = 4 on a repetitive prompt, host and device loops,
+    against the plain stream; (f) the --timings buckets."""
+    import numpy as np
+
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+    from tpu_llm_torch.runtime.phase_timing import measure_phase_times
+
+    max_seq = 2048
+    runs, total = {}, {n: 0 for n in counters()}
+    rng = np.random.default_rng(3)
+    prompt16 = [int(t) for t in rng.integers(3, cfg.vocab_size, 15)]   # + BOS = 16
+
+    def engine():
+        return Engine(params, ModelAdapter.llama(cfg, torch.float32, bos_id=1, device="cuda"),
+                      max_seq=max_seq, device="cuda")
+
+    step_eng, graph_eng = engine(), engine()
+    step_eng.generate(prompt16, n_new=8)                            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph_eng.generate(prompt16, n_new=8, use_scan=True)            # warm-up + capture
+    torch.cuda.synchronize()
+    peak_graph = torch.cuda.max_memory_allocated()
+    g = graph_eng._graphs[("decode", 0.0)]
+    replays0 = g["captured"].replays
+    must = ("qmatmul", "flash_decode_attention")
+    res_a, counts_a = drive_run(torch, "scan_step_loop_16_128",
+                                lambda: step_eng.generate(prompt16, n_new=128), must, runs, total)
+    res_b, counts_b = drive_run(torch, "scan_graph_16_128",
+                                lambda: graph_eng.generate(prompt16, n_new=128, use_scan=True),
+                                must, runs, total)
+    replays = g["captured"].replays - replays0
+    if res_a.tokens != res_b.tokens:
+        fail(f"scan: graph tokens differ from the step loop: {res_a.tokens[16:40]} vs "
+             f"{res_b.tokens[16:40]}")
+    # graph_launches also holds the eager prefill's; replay_launches only
+    # what the replays ran
+    row = dict(step_loop_tok_s=res_a.tokens_per_s, graph_tok_s=res_b.tokens_per_s,
+               step_loop_ttft_ms=res_a.ttft_s * 1e3, graph_ttft_ms=res_b.ttft_s * 1e3,
+               tokens_equal=True, first_tokens=res_b.tokens[15:23],
+               step_loop_launches=counts_a, graph_launches=counts_b,
+               per_replay=g["captured"].per_replay, replays=replays,
+               replay_launches={k: n * replays for k, n in g["captured"].per_replay.items()},
+               peak_mem_gb_with_graph_engine=peak_graph / 1e9)
+    emit("scan_generate", **row)
+
+    # (d) device busy: 16 steps of the step loop, 16 replays of the graph
+    def rewind():
+        g["pos"].fill_(16)
+        g["i"].zero_()
+
+    with torch.inference_mode():
+        prof_graph = graph_profile(torch, g["captured"], 16, rewind)
+    prof_step = profile_decode(torch, params, cfg, max_seq, steps=16)
+    emit("scan_profile", step_loop=prof_step, graph=prof_graph)
+
+    # (c) the bench program, three scale-plane forms
+    ids = torch.tensor([[1] + prompt16], device="cuda")
+    bench = [bench_program(torch, params, cfg, pack, ids, runs, total)
+             for pack in (False, "f16", "bf16")]
+    for b in bench:
+        emit("scan_bench", **b)
+
+    # (e) speculation, k = SPEC_K, on a repetitive prompt (a 8-token pattern x 4)
+    pattern = [int(t) for t in rng.integers(3, cfg.vocab_size, 8)]
+    rep = pattern * 4
+    base, _ = drive_run(torch, "spec_plain_32_128", lambda: step_eng.generate(rep, n_new=128),
+                        must, runs, total)
+    verify_calls = {"n": 0}
+    verify = step_eng._verify
+
+    def counted_verify(*a, **kw):
+        verify_calls["n"] += 1
+        return verify(*a, **kw)
+
+    step_eng._verify = counted_verify
+    host, _ = drive_run(torch, f"spec_host_k{SPEC_K}_32_128",
+                        lambda: step_eng.generate(rep, n_new=128, speculative_k=SPEC_K),
+                        ("qmatmul",), runs, total)
+    del step_eng._verify
+    graph_eng.generate(rep, n_new=8, use_scan=True, speculative_k=SPEC_K)   # warm-up + capture
+    graph_eng.stats.update(spec_forwards=0, spec_tokens=0, spec_host_syncs=0)
+    dev, _ = drive_run(torch, f"spec_device_k{SPEC_K}_32_128",
+                       lambda: graph_eng.generate(rep, n_new=128, use_scan=True,
+                                                  speculative_k=SPEC_K),
+                       ("qmatmul",), runs, total)
+    for label, r in (("host", host), ("device", dev)):
+        if r.tokens != base.tokens:
+            fail(f"spec {label}: tokens differ from the plain greedy stream")
+    st = graph_eng.stats
+    spec = dict(prompt_tokens=32, new_tokens=128, k=SPEC_K, plain_tok_s=base.tokens_per_s,
+                host_tok_s=host.tokens_per_s, host_verify_forwards=verify_calls["n"],
+                host_tokens_per_forward=127 / max(verify_calls["n"], 1),
+                device_tok_s=dev.tokens_per_s, device_forwards=st["spec_forwards"],
+                device_tokens_per_forward=st["spec_tokens"] / max(st["spec_forwards"], 1),
+                device_host_syncs_per_forward=st["spec_host_syncs"] / max(st["spec_forwards"], 1),
+                tokens_equal=True)
+    emit("scan_spec", **spec)
+
+    # (f) the --timings buckets at the CLI's defaults, position 144, over
+    # the loaded q4_0 weights and over the graph loop's int4-plane weights
+    timings = measure_phase_times(params, cfg, pos=144, max_seq=1024)
+    timings_int4 = measure_phase_times(params, cfg, pos=144, max_seq=1024, int4=True)
+    for t in (timings, timings_int4):
+        if not all(math.isfinite(v) for v in t.values()):
+            fail(f"--timings buckets are not finite: {t}")
+    emit("scan_timings", ms_per_token=timings, sum_ms=sum(timings.values()),
+         ms_per_token_int4=timings_int4, sum_ms_int4=sum(timings_int4.values()))
+    del step_eng, graph_eng
+    torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, row=row, bench=bench, spec=spec, timings=timings,
+                timings_int4=timings_int4,
+                busy_graph=prof_graph.get("device_busy_share"),
+                busy_step=prof_step.get("device_busy_share"))
+
+
 # -- phase 8: the FFN megakernel on the main path -------------------------------------
 
 def megakernel_full_width(torch, params, cfg):
@@ -1358,16 +1660,19 @@ def main() -> int:
     cases = check_kernels(torch, timer)
     with tempfile.TemporaryDirectory() as tmp:
         check_cli(tmp)
+        check_scan_cli(tmp)
         check_serve_cli(tmp)
     fw, params, cfg = full_width(torch)
     emit("full_width", **{k: v for k, v in fw.items() if k != "runs"})
+    sc = scan_full_width(torch, params, cfg)
+    emit("scan_full_width", **{k: v for k, v in sc.items() if k != "runs"})
     sv = serve_full_width(torch, params, cfg)
     mk = megakernel_full_width(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
     kq = kquant_full_width(torch)
-    total = {k: fw["total"][k] + sv["total"][k] + mk["total"][k] + kq["total"][k]
-             for k in fw["total"]}
+    phases = (fw, sc, sv, mk, kq)
+    total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     out = []
     for name, source, replaces, pick in KERNELS:
@@ -1381,6 +1686,8 @@ def main() -> int:
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "case": pick,
         })
+        if name in sc["row"]["replay_launches"]:   # the part of `launches` graph replays made
+            out[-1]["graph_replay_launches"] = sc["row"]["replay_launches"][name]
         if name == "qmatmul":     # every kind at w13, one row: ms / bound / error
             out[-1]["w13_1row"] = {
                 f"{c['kind']}/{c['planes']}": [c["kernel_ms"], c["bound_ms"], c["max_abs_err"]]

@@ -1,6 +1,8 @@
 """The port's CLI (run on the CPU) prints byte-identical greedy output to
 tpu_llm.runtime.cli on the tiny test GGUFs (f32, Q4_0, and K-quant and
-legacy-quant files), with and without --fold-norms."""
+legacy-quant files), with and without --fold-norms, and with --scan,
+--spec, --spec --draft and --scan --spec; --timings prints the five
+buckets."""
 
 import pytest
 
@@ -40,11 +42,20 @@ def test_sampled_output_reproducible_per_seed(tmp_path, capfdbinary):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("flag", [["--scan"], ["--top-k", "5"], ["--spec", "2"],
-                                  ["--cache-dtype", "int8"]])
-def test_flags_outside_the_slice_are_refused(flag):
-    with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["-m", "x.gguf", *flag])
+@pytest.mark.parametrize("flag,refused", [(["--scan"], False), (["--top-k", "5"], True),
+                                          (["--spec", "2"], False),
+                                          (["--cache-dtype", "int8"], True),
+                                          (["--profile", "x"], True)])
+def test_flags_outside_the_slice_are_refused(flag, refused):
+    """--scan and --spec parse since the --scan slice; the sampling filters,
+    the dense int8 cache and --profile stay refused."""
+    parser = tcli.build_parser()
+    if refused:
+        with pytest.raises(SystemExit):
+            parser.parse_args(["-m", "x.gguf", *flag])
+    else:
+        args = parser.parse_args(["-m", "x.gguf", *flag])
+        assert args.scan or args.spec == 2
 
 
 def _first_lines(capfdbinary, args, port_flags=()):
@@ -94,3 +105,31 @@ def test_fold_norms_native_kquant_runs(tmp_path, capfdbinary):
                       "--fold-norms", "--device", "cpu"]) == 0
     out = capfdbinary.readouterr().out
     assert out.startswith(b"abc") and len(out.split(b"\n")[0]) > 3
+
+
+@pytest.mark.parametrize("flags", [["--scan"], ["--spec", "3"], ["--spec", "3", "--draft", None],
+                                   ["--scan", "--spec", "3"]],
+                         ids=["scan", "spec", "spec_draft", "scan_spec"])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "q4_0"])
+def test_scan_and_spec_match_jax(tmp_path, capfdbinary, quant, flags):
+    """The graph loop (eager on the CPU) and every speculative mode print
+    the JAX CLI's first line; --draft takes the same file."""
+    path = str(tmp_path / "tiny.gguf")
+    build_tiny_gguf(path, quant=quant)
+    flags = [path if f is None else f for f in flags]         # --draft: the same file
+    got, want = _first_lines(capfdbinary, ["-m", path, "-p", "abc", "-n", "12",
+                                           "--dtype", "f32", *flags])
+    assert got == want and got.startswith(b"abc") and len(got) > 3
+
+
+def test_timings_prints_the_five_buckets(tmp_path, capfdbinary):
+    path = str(tmp_path / "tiny.gguf")
+    build_tiny_gguf(path, quant=True)
+    capfdbinary.readouterr()
+    assert tcli.main(["-m", path, "-p", "abc", "-n", "8", "--dtype", "f32", "--timings",
+                      "--device", "cpu"]) == 0
+    lines = capfdbinary.readouterr().out.decode().splitlines()
+    at = lines.index(" Timings (ms/token, per-phase on-device)")
+    rows = lines[at + 1:at + 6]
+    assert [r.split()[1] for r in rows] == ["qkv", "rope", "attention", "ffn", "classifier"]
+    assert all(float(r.split()[2]) == float(r.split()[2]) for r in rows)     # not NaN

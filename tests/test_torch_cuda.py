@@ -317,16 +317,26 @@ def test_qmatmul_kinds_match_plain(gen, kind, planes, K, N, all_rows, with_rs):
 
 
 def test_qmatmul_refuses_scan_slice_planes(gen):
-    """q4_0i4 and int16 f16-bit scale planes come with the --scan slice: on
-    the card the wrapper raises (no plain fallback), naming ROADMAP."""
-    x = torch.zeros((1, 64), device="cuda")
-    i4 = QTensor(torch.zeros((64, 16), dtype=torch.int8, device="cuda"),
-                 torch.ones((2, 16), device="cuda"), "q4_0i4")
-    f16bits = QTensor(torch.zeros((32, 16), dtype=torch.uint8, device="cuda"),
-                      torch.ones((2, 16), dtype=torch.int16, device="cuda"), "q4_0")
+    """Since the --scan slice K1 takes q4_0i4 and int16 (f16-bit) scale
+    planes; a misaligned int16 plane, or an int16 mins plane under f32
+    scales, is refused (no plain fallback) and launches nothing."""
+    x = torch.randn((1, 64), generator=gen, device="cuda")
+    q = torch.randint(0, 256, (32, 16), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.uint8)
+    s = torch.rand((2, 16), generator=gen, device="cuda") * 0.01
+    f16bits = s.half().view(torch.int16)
+    for w in (QTensor(q, s, "q4_0i4"), QTensor(q, f16bits, "q4_0i4"),
+              QTensor(q, f16bits, "q4_0")):
+        launches = qmatmul.launches
+        got = qmatmul(x, w)
+        assert qmatmul.launches == launches + 1
+        _close(got, qmatmul_plain(x, w), False)
+    buf = torch.zeros(2 * 16 + 1, dtype=torch.int16, device="cuda")
+    misaligned = buf[1:].view(2, 16)
+    misaligned.copy_(f16bits)
     launches = qmatmul.launches
-    for w in (i4, f16bits):
-        with pytest.raises(ValueError, match="ROADMAP"):
+    for w in (QTensor(q, misaligned, "q4_0i4"), QTensor(q, s, "q4_0i4", f16bits)):
+        with pytest.raises(ValueError, match="planes"):
             qmatmul(x, w)
     assert qmatmul.launches == launches
 
@@ -422,3 +432,177 @@ def test_linear_k_padded_row_scale_card_match_cpu(gen, codec):
     want = linear.matmul(x, w, row_scale=rs)
     got = linear.matmul(x.cuda(), qmap(lambda p: p.cuda(), w), row_scale=rs.cuda())
     _close(got, want.cuda(), False)
+
+
+# -- the --scan slice: q4_0i4 and f16-bit planes, captured decode -------------
+
+INT4_SOURCES = ["q4_0", "q4_1", "q2_kp", "q3_kp"]
+
+
+def _int4_weight(gen, src, K, N, planes):
+    """A random ``src`` weight (chip_smoke.random_qtensor) through to_int4,
+    its planes f32, bf16 or f16 bits (int16)."""
+    from chip_smoke import random_qtensor
+    from tpu_llm_torch.quant.qtensor import pack_scales_bf16, pack_scales_f16, to_int4
+
+    w = to_int4(random_qtensor(torch, gen, src, K, N, "f32"))
+    assert w.kind == "q4_0i4"
+    return {"f32": w, "bf16": pack_scales_bf16(w), "int16": pack_scales_f16(w)}[planes]
+
+
+@pytest.mark.parametrize("with_rs", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("K,N,all_rows", [(256, 130, (1, 3, 8, 37)),
+                                          (5632, 2560, (1, 5, 8, 512)),
+                                          (2048, 32000, (1, 8))])
+@pytest.mark.parametrize("planes", ["f32", "bf16", "int16"])
+@pytest.mark.parametrize("src", INT4_SOURCES)
+def test_qmatmul_int4_matches_plain(gen, src, planes, K, N, all_rows, with_rs):
+    """q4_0i4 in blocks of 32 (from q4_0, q4_1 with mins) and 16 (from
+    q2_kp with mins, q3_kp), f32 / bf16 / f16-bit planes, rows 1-8, 37 and
+    512, ragged N, row_scale on and off, f32 and bf16 x."""
+    w = _int4_weight(gen, src, K, N, planes)
+    rs = (1 + 0.2 * torch.randn(K, generator=gen, device="cuda")) if with_rs else None
+    for rows in all_rows:
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((rows, K), generator=gen, device="cuda").to(xdt)
+            launches = qmatmul.launches
+            got = qmatmul(x, w, row_scale=rs)
+            assert qmatmul.launches == launches + 1 and got.dtype == xdt
+            _close(got, qmatmul_plain(x, w, row_scale=rs), xdt == torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0", "q6_kp", "q5_1"])
+def test_qmatmul_f16_bit_planes_every_kind(gen, kind):
+    """int16 f16-bit planes for kinds other than q4_0i4 (the JAX package's
+    pack_scales_f16 takes any kind), subnormal f16 scales included: exact
+    decode, so the kernel equals itself on the f32 planes the bits stand for."""
+    from chip_smoke import random_qtensor
+    from tpu_llm_torch.quant.qtensor import QTensor as Q
+    from tpu_llm_torch.quant.qtensor import pack_scales_f16, unpack_scales_f16
+
+    w = pack_scales_f16(random_qtensor(torch, gen, kind, 2048, 2560, "f32"))
+    s = w.scales.clone()
+    s[:2] = (torch.randint(1, 1024, (2, 2560), generator=gen, device="cuda")
+             .to(torch.int16))                            # f16 subnormals
+    w = Q(w.q, s, kind, w.mins)
+    f32 = Q(w.q, unpack_scales_f16(s), kind,
+            w.mins if w.mins is None or w.mins.dtype == torch.uint8
+            else unpack_scales_f16(w.mins))
+    x = torch.randn((8, 2048), generator=gen, device="cuda")
+    got = qmatmul(x, w)
+    _close(got, qmatmul_plain(x, w), False)
+    assert torch.equal(got, qmatmul(x, f32))
+
+
+def _tiny_llama(kind="q4_0", dim=128, device="cuda"):
+    from tpu_llm_torch.config import LlamaConfig
+    from tpu_llm_torch.quant.convert_params import quantize_llama_params
+
+    cfg = LlamaConfig(dim=dim, hidden_dim=96, n_layers=2, n_heads=4, n_kv_heads=2,
+                      vocab_size=100, seq_len=64)
+    g = torch.Generator().manual_seed(5)
+    s = lambda *shape: (torch.randn(shape, generator=g) * 0.08).to(device)  # noqa: E731
+    dense = {"tok_emb": s(100, dim), "final_norm": 1 + 0.1 * s(dim), "wcls": s(dim, 100),
+             "layers": [{"attn_norm": 1 + 0.1 * s(dim), "ffn_norm": 1 + 0.1 * s(dim),
+                         "wq": s(dim, dim), "wk": s(dim, 64), "wv": s(dim, 64),
+                         "wo": s(dim, dim), "w1": s(dim, 96), "w3": s(dim, 96),
+                         "w2": s(96, dim)} for _ in range(2)]}
+    return quantize_llama_params(dense, kind, fuse=True), cfg
+
+
+@pytest.mark.parametrize("defer_kv", [False, True])
+def test_captured_step_matches_eager_and_reads_the_device_position(gen, defer_kv):
+    """A decode step captured once (position, token and logits in static
+    device buffers) against the eager step at two positions: the replay
+    after the position moves equals the eager step there and differs from
+    a replay at the stale position."""
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.graphs import CapturedStep
+
+    params, cfg = _tiny_llama()
+    cache = M.init_cache(cfg, 1, 64, device="cuda")
+    ref = M.init_cache(cfg, 1, 64, device="cuda")
+    for p, t in enumerate([1, 7, 42, 9, 3, 5]):           # fill rows 0-5 in both
+        M.decode_step(params, cfg, torch.tensor([t], device="cuda"), cache, p, defer_kv)
+        M.decode_step(params, cfg, torch.tensor([t], device="cuda"), ref, p, defer_kv)
+    tok = torch.tensor([11], device="cuda")
+    pos = torch.tensor([6], dtype=torch.int32, device="cuda")
+    logits = torch.zeros((1, 100), device="cuda")
+
+    def step():
+        out, _ = M.decode_step(params, cfg, tok, cache, pos, defer_kv)
+        logits.copy_(out)
+
+    cap = CapturedStep(step, "cuda", warmup=1)            # warm-up: a real step at 6
+    assert cap.graph is not None
+    for p in (6, 4):
+        pos.fill_(p)
+        cap()
+        want, _ = M.decode_step(params, cfg, tok, ref, p, defer_kv)
+        torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+        at_p = logits.clone()
+    pos.fill_(6)
+    cap()
+    assert not torch.allclose(logits, at_p)               # position 6 is not position 4
+
+
+def test_captured_step_counts_launches_per_replay(gen):
+    """The capture counts nothing; each replay adds what it launches."""
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.ops import flash_attention as FA
+    from tpu_llm_torch.runtime.graphs import CapturedStep
+
+    params, cfg = _tiny_llama()
+    cache = M.init_cache(cfg, 1, 64, device="cuda")
+    tok = torch.tensor([3], device="cuda")
+    pos = torch.tensor([0], dtype=torch.int32, device="cuda")
+
+    def step():
+        M.decode_step(params, cfg, tok, cache, pos)
+        pos.add_(1)
+
+    q0, a0 = qmatmul.launches, FA.flash_decode_attention.launches
+    cap = CapturedStep(step, "cuda", warmup=1)
+    # the warm-up step launched 2 layers x 4 projections + wcls, 2 attentions
+    assert (qmatmul.launches - q0, FA.flash_decode_attention.launches - a0) == (9, 2)
+    assert cap.per_replay == {"qmatmul": 9, "flash_decode_attention": 2}
+    for _ in range(5):
+        cap()
+    assert (qmatmul.launches - q0, FA.flash_decode_attention.launches - a0) == (54, 12)
+    assert cap.replays == 5 and int(pos.item()) == 6
+
+
+@pytest.mark.parametrize("weights", ["q4_0", "q8_0_megakernel"])
+def test_engine_scan_and_spec_card_match_cpu(gen, monkeypatch, weights):
+    """Engine.generate with use_scan (the captured graph), host and device
+    speculation: on the card every mode gives the step loop's greedy
+    tokens, and with f32 activations the CPU's too (bf16 activations, the
+    megakernel's, may flip a near-tie between devices); the megakernel
+    (K7, a cooperative launch) replays inside the graph."""
+    from tpu_llm_torch.quant.ffn import ffn_fused
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+
+    kind = weights.split("_megakernel")[0]
+    if weights.endswith("megakernel"):
+        monkeypatch.setenv("TPU_LLM_FFN_MEGAKERNEL", "1")
+    card, cfg = _tiny_llama(kind)
+    cpu, _ = _tiny_llama(kind, device="cpu")
+    if weights.endswith("megakernel"):
+        card = dict(card, tok_emb=card["tok_emb"].bfloat16())
+        cpu = dict(cpu, tok_emb=cpu["tok_emb"].bfloat16())
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        eng = Engine(params, ModelAdapter.llama(cfg, bos_id=1, device=dev), max_seq=64,
+                     device=dev)
+        k0 = ffn_fused.launches
+        runs[dev] = [eng.generate([4, 7, 4, 7, 4, 7], n_new=24, **kw).tokens
+                     for kw in ({}, {"use_scan": True}, {"use_scan": True},
+                                {"speculative_k": 3},
+                                {"use_scan": True, "speculative_k": 3})]
+        if dev == "cuda":
+            assert eng._graphs[("decode", 0.0)]["captured"].graph is not None
+            assert (ffn_fused.launches > k0) == weights.endswith("megakernel")
+    if not weights.endswith("megakernel"):
+        assert runs["cuda"] == runs["cpu"]
+    for dev in runs:
+        assert all(r == runs[dev][0] for r in runs[dev]), dev

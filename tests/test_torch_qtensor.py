@@ -58,14 +58,20 @@ def test_block_codecs_match_jax(kind):
 
 
 def test_other_kinds_name_their_slice():
-    """Only the --scan program's int4-plane kind and f16-bit (int16) scale
-    planes remain outside the port; both name their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """q4_0i4 is made only by to_int4: quantize_tensor refuses it with a
+    ValueError, as the JAX package does; int16 (f16-bit) scale planes
+    dequantize as the JAX package's; an unknown ggml type is refused."""
+    with pytest.raises(ValueError):
         tq.quantize_tensor(np.zeros((32, 32), np.float32), "q4_0i4")
-    int16_planes = tq.QTensor(torch.zeros((16, 8), dtype=torch.uint8),
-                              torch.zeros((1, 8), dtype=torch.int16), "q4_0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.dequantize(int16_planes)
+    with pytest.raises(ValueError):
+        jq.quantize_tensor(np.zeros((32, 32), np.float32), "q4_0i4")
+    rng = np.random.default_rng(4)
+    bits = (rng.integers(0, 0x7C00, (1, 8)) | (rng.integers(0, 2, (1, 8)) << 15))
+    bits = bits.astype(np.uint16).view(np.int16)
+    q = rng.integers(0, 256, (16, 8)).astype(np.uint8)
+    int16_planes = tq.QTensor(torch.from_numpy(q), torch.from_numpy(bits), "q4_0")
+    want = jq.dequantize(jq.QTensor(jnp.asarray(q), jnp.asarray(bits), "q4_0"), jnp.float32)
+    np.testing.assert_array_equal(tq.dequantize(int16_planes).numpy(), np.asarray(want))
     with pytest.raises(ValueError):
         tq.qtensor_from_ggml(tgg.GGML_Q8_1, np.zeros(36, np.uint8), 1, 32)
 

@@ -1,8 +1,9 @@
 // Fused dequant-matmul for packed block-quantized weights on Hopper.
 //
 // Replaces: tpu_llm/quant/pallas_matmul.py::_qmm_kernel (wrapper
-// qmatmul_pallas) for every kind it takes but the int4-plane q4_0i4, with
-// f32 or bf16 scale planes, the affine mins plane and the row_scale operand.
+// qmatmul_pallas) for every kind it takes, the int4-plane q4_0i4 of the
+// --scan program included, with f32, bf16 or f16-bit (int16) scale and mins
+// planes (_scale_f32), the affine mins plane and the row_scale operand.
 //
 // Computes out (rows, N) = (x * row_scale) (rows, K) @ W (K, N), with W as
 // packed in tpu_llm_torch/quant/qtensor.py: value v[k, n] times the scale of
@@ -10,19 +11,21 @@
 //   out[r, n] = sum_k x'[r, k] v[k, n] s[k / B, n] + sum_b xs[r, b] m[b, n]
 // where x' = x * row_scale (f32, not rounded) and xs[r, b] the sum of x' over
 // block b. Value planes:
-// - nibble-packed (q4_0, q4_1, q2_kp, q3_kp): byte (16b + j, n) holds
+// - nibble-packed (q4_0, q4_0i4, q4_1, q2_kp, q3_kp): byte (16b + j, n) holds
 //   v[32b + j, n] (low nibble) and v[32b + 16 + j, n] (high nibble), minus a
-//   per-kind offset (8, 0, 0, 4);
+//   per-kind offset (8, 8, 0, 0, 4); q4_0i4 stores its signed int4 values in
+//   offset binary, so it is q4_0's layout in blocks of 32 or 16 rows;
 // - q6_kp: the same nibbles, plus 2 high bits from the (K/4, N) qh plane
 //   (byte (8b + i, n) bits 2*(r/8).. for row 32b + r, i = r % 8), minus 32;
 // - int8 (q8_0, q5_0, q5_1, q2_k, q3_k, q6_k): v[k, n] = q[k, n].
 // Accumulation is f32 for f32 and bf16 activations alike; bf16 scale and min
-// planes are widened in registers (exact).
+// planes are widened in registers (exact), f16 bits through __half2float
+// (exact, subnormal scales included).
 //
 // What bounds it on the H100: at decode (rows 1-8) the weight bytes, from
-// 0.5625 (q4_0, f32 scales) to 1.125 (q8_0; q6_k with bf16 per-16 scales)
-// bytes a weight, over the 3.35 TB/s of HBM; nothing of the weight is
-// reused. At prefill rows the f32 FMAs on the CUDA cores.
+// 0.5625 (q4_0 / q4_0i4 with 2-byte planes) to 1.125 (q8_0; q6_k with bf16
+// per-16 scales) bytes a weight, over the 3.35 TB/s of HBM; nothing of the
+// weight is reused. At prefill rows the f32 FMAs on the CUDA cores.
 //
 // Design against that bound:
 // - every weight byte is read once per 8-row tile, 4 columns per 32-bit
@@ -35,11 +38,12 @@
 // - decode has few columns per matrix (2048 columns = 16 blocks of 128),
 //   so K is split: 8 warps of a block take interleaved 32-row blocks and
 //   reduce through shared memory, and the grid's y dimension splits K
-//   further until the grid covers the 132 SMs about twice; the y partials
-//   go to an f32 workspace summed by a second, small kernel (fixed order:
-//   the result does not depend on scheduling);
+//   further until the grid covers the card's SMs about twice; the y
+//   partials go to an f32 workspace summed by a second, small kernel (fixed
+//   order: the result does not depend on scheduling);
 // - ragged N is masked per thread (32000 = 250 x 128; 2560 = 20 x 128).
 // Not yet: tensor cores (wgmma) for prefill rows, cp.async/TMA pipelining.
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -54,10 +58,19 @@ constexpr int kCols = 128;                // 32 lanes x 4 columns
 
 // value planes: int8 values, nibble-packed, nibble-packed + qh plane
 enum Pack { kInt8 = 0, kNibble = 1, kNibbleQh = 2 };
+// scale / mins plane element types
+enum Plane { kF32 = 0, kBF16 = 1, kF16Bits = 2 };
+
+// one 16-bit plane element as f32: bf16 widens by a shift, f16 bits through
+// the hardware conversion (both exact)
+__device__ __forceinline__ float half_bits_to_f32(uint32_t h, int dtype) {
+  return dtype == kBF16 ? __uint_as_float(h << 16)
+                        : __half2float(__ushort_as_half((unsigned short)h));
+}
 
 // 4 scale (or min) values of plane row `row`, columns n0..n0+3, as f32
-// (zero past N); bf16 widens exactly by a 16-bit shift
-__device__ __forceinline__ void load_plane4(const void* __restrict__ plane, int bf16,
+// (zero past N)
+__device__ __forceinline__ void load_plane4(const void* __restrict__ plane, int dtype,
                                             int64_t row, int n0, int N, bool vec,
                                             float out[4]) {
   if (n0 >= N) {
@@ -66,18 +79,18 @@ __device__ __forceinline__ void load_plane4(const void* __restrict__ plane, int 
     return;
   }
   const int64_t o = row * N + n0;
-  if (bf16) {
+  if (dtype != kF32) {
     const uint16_t* p = static_cast<const uint16_t*>(plane) + o;
     if (vec) {
       const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-      out[0] = __uint_as_float(v.x << 16);
-      out[1] = __uint_as_float(v.x & 0xFFFF0000u);
-      out[2] = __uint_as_float(v.y << 16);
-      out[3] = __uint_as_float(v.y & 0xFFFF0000u);
+      out[0] = half_bits_to_f32(v.x & 0xFFFFu, dtype);
+      out[1] = half_bits_to_f32(v.x >> 16, dtype);
+      out[2] = half_bits_to_f32(v.y & 0xFFFFu, dtype);
+      out[3] = half_bits_to_f32(v.y >> 16, dtype);
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        out[c] = n0 + c < N ? __uint_as_float(uint32_t(__ldg(p + c)) << 16) : 0.f;
+        out[c] = n0 + c < N ? half_bits_to_f32(__ldg(p + c), dtype) : 0.f;
     }
   } else {
     const float* p = static_cast<const float*>(plane) + o;
@@ -114,7 +127,7 @@ template <typename XT, int PACK, bool B16, int ROWS>
 __global__ void __launch_bounds__(kThreads)
 qmm_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
            const uint8_t* __restrict__ q, const uint8_t* __restrict__ qh,
-           const void* __restrict__ scales, const void* __restrict__ mins, int s_bf16,
+           const void* __restrict__ scales, const void* __restrict__ mins, int s_dtype,
            int voff, void* __restrict__ out, int out_bf16, float* __restrict__ partial,
            int rows, int K, int N, int kb_per_split) {
   const int lane = threadIdx.x & 31;
@@ -193,8 +206,8 @@ qmm_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
     }
     // scales: per-16 blocks take plane rows 2kb (first half) and 2kb + 1
     float slo[4], shi[4];
-    load_plane4(scales, s_bf16, B16 ? 2 * (int64_t)kb : kb, n0, N, vec, slo);
-    if (B16) load_plane4(scales, s_bf16, 2 * (int64_t)kb + 1, n0, N, vec, shi);
+    load_plane4(scales, s_dtype, B16 ? 2 * (int64_t)kb : kb, n0, N, vec, slo);
+    if (B16) load_plane4(scales, s_dtype, 2 * (int64_t)kb + 1, n0, N, vec, shi);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
 #pragma unroll
@@ -217,8 +230,8 @@ qmm_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
         xs_hi[r] = __shfl_sync(0xffffffffu, v, 16);
       }
       float mlo[4], mhi[4];
-      load_plane4(mins, s_bf16, B16 ? 2 * (int64_t)kb : kb, n0, N, vec, mlo);
-      if (B16) load_plane4(mins, s_bf16, 2 * (int64_t)kb + 1, n0, N, vec, mhi);
+      load_plane4(mins, s_dtype, B16 ? 2 * (int64_t)kb : kb, n0, N, vec, mlo);
+      if (B16) load_plane4(mins, s_dtype, 2 * (int64_t)kb + 1, n0, N, vec, mhi);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
 #pragma unroll
@@ -271,7 +284,7 @@ __global__ void qmm_reduce(const float* __restrict__ partial, void* __restrict__
 
 struct Args {
   const void* x; const float* rs; const uint8_t* q; const uint8_t* qh;
-  const void* scales; const void* mins; int s_bf16; int voff;
+  const void* scales; const void* mins; int s_dtype; int voff;
   void* out; int out_bf16; float* partial; int rows, K, N, ksplit, kb_per_split;
 };
 
@@ -279,7 +292,7 @@ template <typename XT, int PACK, bool B16, int RT>
 void launch_tile(const Args& a, cudaStream_t st) {
   dim3 grid((a.N + kCols - 1) / kCols, a.ksplit, (a.rows + RT - 1) / RT);
   qmm_kernel<XT, PACK, B16, RT><<<grid, kThreads, 0, st>>>(
-      static_cast<const XT*>(a.x), a.rs, a.q, a.qh, a.scales, a.mins, a.s_bf16, a.voff,
+      static_cast<const XT*>(a.x), a.rs, a.q, a.qh, a.scales, a.mins, a.s_dtype, a.voff,
       a.out, a.out_bf16, a.ksplit > 1 ? a.partial : nullptr, a.rows, a.K, a.N,
       a.kb_per_split);
 }
@@ -310,17 +323,18 @@ int launch_kind(const Args& a, int pack, int block, cudaStream_t st) {
 
 // pack: 0 int8 values, 1 nibble-packed, 2 nibble-packed + qh plane (qh, K/4
 // rows); voff: subtracted from each unpacked value; block: 32 or 16 rows a
-// scale; scales / mins: f32 (s_bf16 0) or bf16 planes, mins may be null;
+// scale; scales / mins: f32 (s_dtype 0), bf16 (1) or f16-bit (2) planes of
+// one dtype, mins may be null;
 // row_scale: (K,) f32 or null. partial: (ksplit, rows, N) f32 workspace when
 // ksplit > 1, else unused. Returns cudaGetLastError() after the launches.
 TLT_API int tlt_qmatmul(const void* x, int x_bf16, const void* row_scale, const void* q,
-                        const void* qh, const void* scales, const void* mins, int s_bf16,
+                        const void* qh, const void* scales, const void* mins, int s_dtype,
                         int pack, int voff, int block, void* out, int out_bf16,
                         void* partial, int rows, int K, int N, int ksplit,
                         int kb_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{x, static_cast<const float*>(row_scale), static_cast<const uint8_t*>(q),
-               static_cast<const uint8_t*>(qh), scales, mins, s_bf16, voff, out, out_bf16,
+               static_cast<const uint8_t*>(qh), scales, mins, s_dtype, voff, out, out_bf16,
                static_cast<float*>(partial), rows, K, N, ksplit, kb_per_split};
   const int bad = x_bf16 ? launch_kind<__nv_bfloat16>(a, pack, block, st)
                          : launch_kind<float>(a, pack, block, st);

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (all return int = cudaError_t)
 SIGNATURES = {
-    # x, x_bf16, row_scale, q, qh, scales, mins, s_bf16, pack, voff, block,
+    # x, x_bf16, row_scale, q, qh, scales, mins, s_dtype, pack, voff, block,
     # out, out_bf16, partial, rows, K, N, ksplit, kb_per_split, stream
     "tlt_qmatmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _I, _P, _I, _I, _I, _I, _I, _P],

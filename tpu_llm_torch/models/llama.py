@@ -27,8 +27,10 @@ writes one row). There is no autograd: this path serves only.
 ``offset`` is an int, or a (B,) tensor giving each batch row its own
 position (continuous batching: positions (B, T) flow through RoPE, the
 cache write and attention; decode then goes to K2 with per-row
-positions). ``update_fn`` / ``attn_fn`` replace the cache write and the
-attention (the paged engine's hooks, as in the reference).
+positions), or a one-element tensor for every row: the engine's
+CUDA-graph decode step, which reads its position on the device only.
+``update_fn`` / ``attn_fn`` replace the cache write and the attention (the
+paged engine's hooks, as in the reference).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from tpu_llm_torch.ops.norms import rmsnorm
 from tpu_llm_torch.ops.rope import rope_angles, rotate
 from tpu_llm_torch.quant.ffn import MAX_ROWS, ffn_fused, ffn_ok
 from tpu_llm_torch.quant.linear import matmul
-from tpu_llm_torch.quant.qtensor import QTensor
+from tpu_llm_torch.quant.qtensor import plane_from_numpy, qtensor_from_numpy
 
 Params = Dict[str, Any]
 Cache = Dict[str, List[torch.Tensor]]
@@ -145,17 +147,21 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache
             offset, defer_kv: bool = False, update_fn=None,
             attn_fn=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, T) at positions [offset, offset + T) -> (final-normed
-    hidden (B, T, E), cache). ``offset`` is an int or a (B,) tensor of
-    per-row positions. The cache planes are updated in place (``update_fn``
-    and ``attn_fn`` replace the write and the attention; a paged cache
-    passes its per-layer state in cache["k"])."""
+    hidden (B, T, E), cache). ``offset`` is an int, or a device tensor: (B,)
+    per-row positions, or one element for every row. With a tensor offset
+    nothing of the step reads the position on the host, so one captured
+    CUDA graph of the step serves every position. The cache planes are
+    updated in place (``update_fn`` and ``attn_fn`` replace the write and
+    the attention; a paged cache passes its per-layer state in
+    cache["k"])."""
     B, T = tokens.shape
-    if defer_kv and (T != 1 or torch.is_tensor(offset)):
-        raise ValueError("defer_kv is a decode (T == 1) path at one int offset")
+    if defer_kv and T != 1:
+        raise ValueError("defer_kv is a decode (T == 1) path")
     x = params["tok_emb"][tokens.long()]
     steps = torch.arange(T, dtype=torch.int32, device=x.device)
     if torch.is_tensor(offset):
-        positions = offset.to(device=x.device, dtype=torch.int32).reshape(B, 1) + steps
+        off = offset.to(device=x.device, dtype=torch.int32).reshape(-1)
+        positions = off.expand(B).reshape(B, 1) + steps
     else:
         positions = offset + steps
     rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_variant)
@@ -179,8 +185,9 @@ def lm_head(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def decode_step(params: Params, cfg: LlamaConfig, token: torch.Tensor, cache: Cache,
-                pos: int, defer_kv: bool = False) -> Tuple[torch.Tensor, Cache]:
-    """One decode step: (B,) token ids at position ``pos`` -> (B, V) logits."""
+                pos, defer_kv: bool = False) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: (B,) token ids at position ``pos`` (an int or a
+    device tensor, as ``forward``'s offset) -> (B, V) logits."""
     x, cache = forward(params, cfg, token[:, None], cache, pos, defer_kv=defer_kv)
     return lm_head(params, cfg, x)[:, 0, :], cache
 
@@ -288,27 +295,19 @@ def load_gguf(path_or_gguf, dtype_policy: str = "f32", fuse: bool = True,
 
 # -- weights carried across from the JAX package -----------------------------
 
-def _tensor_from_numpy(a, device) -> torch.Tensor:
-    a = np.array(a)   # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":   # ml_dtypes bf16: carry the bits
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
 def params_from_numpy(tree: Params, device="cpu") -> Params:
     """The JAX package's llama parameter pytree, with every array turned
     into numpy (a QTensor given as {"q", "scales", "kind", "mins"}), ->
     the port's parameters on ``device``. Stacked layers (a dict of (L, ...) arrays)
-    are split into the per-layer list the port runs."""
+    are split into the per-layer list the port runs. q4_0i4 int4 planes
+    (``unpack_params_int4``) are packed into the port's nibble layout;
+    int16 f16-bit scale and mins planes carry across as they are."""
     def leaf(v):
         if v is None:
             return None
         if isinstance(v, dict):
-            mins = v.get("mins")
-            return QTensor(_tensor_from_numpy(v["q"], device),
-                           _tensor_from_numpy(v["scales"], device), v["kind"],
-                           None if mins is None else _tensor_from_numpy(mins, device))
-        return _tensor_from_numpy(v, device)
+            return qtensor_from_numpy(v["q"], v["scales"], v["kind"], v.get("mins"), device)
+        return plane_from_numpy(v, device)
 
     def index(v, i):
         if isinstance(v, dict):

@@ -82,8 +82,8 @@ def _causal_mask(scores: torch.Tensor, q_positions: torch.Tensor, S: int,
     if kv_lengths is not None:
         visible = visible & (s_idx[None, None, :]
                              < kv_lengths.reshape(-1)[:, None, None])
-    return torch.where(visible[:, :, None, None, :], scores,
-                       torch.tensor(NEG_INF, device=scores.device))
+    # a Python scalar fill: no host-to-device copy, so a CUDA graph captures it
+    return scores.masked_fill(~visible[:, :, None, None, :], NEG_INF)
 
 
 def gqa_attention(q: torch.Tensor, k_cache, v_cache, q_positions: torch.Tensor,
@@ -168,8 +168,7 @@ def gqa_attention_deferred(q: torch.Tensor, k_cache: torch.Tensor,
     visible = s_idx[None, None, :] <= qp[:, :, None]
     is_cur5 = is_cur[:, :, None, None, :]
     scores = torch.where(is_cur5, score_cur[..., None], scores)
-    scores = torch.where(visible[:, :, None, None, :], scores,
-                         torch.tensor(NEG_INF, device=q.device))
+    scores = scores.masked_fill(~visible[:, :, None, None, :], NEG_INF)
     att = torch.softmax(scores, dim=-1)
     att_cur = torch.sum(att * is_cur5, dim=-1)                    # (B,T,Hkv,G)
     att_cache = att * ~is_cur5

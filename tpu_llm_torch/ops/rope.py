@@ -8,8 +8,10 @@
 - ``"llmf90"``: the Fortran reference's loop — pair j uses exponent
   (2j+1)/D and position pos+1; interleaved pairing.
 
-All math in float32. Context-extension scaling (linear, YaRN) and partial
-rope are not in this slice.
+All math in float32, on the positions' device with no host read, so a
+decode step whose positions are a device tensor can be captured in a CUDA
+graph. Context-extension scaling (linear, YaRN) and partial rope are not
+in this slice.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0,
         pos = pos + 1.0
     else:
         exponent = (2.0 * j) / head_dim
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=j.device), -exponent)
+    # the base is filled on the device (no host copy): a CUDA graph captures it
+    base = torch.full((), theta, dtype=torch.float32, device=j.device)
+    freq = torch.pow(base, -exponent)
     ang = pos[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
 

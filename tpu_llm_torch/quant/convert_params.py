@@ -1,7 +1,9 @@
 """Parameter transforms (``tpu_llm/quant/convert_params.py``): quantize
 dense projections to packed QTensors, fuse q|k|v and gate|up, fold the
-interleaved-RoPE pairing into the wq/wk columns, and fold the rmsnorm
-weights into the projections that follow them (``--fold-norms``).
+interleaved-RoPE pairing into the wq/wk columns, fold the rmsnorm
+weights into the projections that follow them (``--fold-norms``), and
+turn the q4 family into the ``--scan`` program's int4-plane weights
+(``unpack_params_int4``).
 
 Parameters are a dict: ``tok_emb``, ``final_norm``, ``wcls`` (QTensor,
 tensor or None for tied embeddings) and ``layers``, a list of per-layer
@@ -16,8 +18,9 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from tpu_llm_torch.quant.qtensor import (QTensor, dequantize, pack_q6_k, qmap,
-                                         quantize_tensor)
+from tpu_llm_torch.quant.qtensor import (QTensor, dequantize, pack_q6_k,
+                                         pack_scales_bf16, pack_scales_f16, qmap,
+                                         quantize_tensor, to_int4)
 
 LLAMA_PROJ_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
@@ -64,6 +67,38 @@ def quantize_llama_params(params: Dict, kind: str = "q4_0",
         out["wcls"] = q(params["wcls"])
     if fuse:
         out["layers"] = fuse_llama_layers(out["layers"])
+    return out
+
+
+def unpack_params_int4(params: Dict, pack_scales=False) -> Dict:
+    """The decode weight transform of the ``--scan`` program: every 2-D
+    q4_0 / q4_1 / q2_kp / q3_kp QTensor -> q4_0i4 (``qtensor.to_int4``;
+    the value planes are shared where the bytes do not change, so the
+    original parameters stay usable for prefill at no extra memory).
+
+    ``pack_scales`` halves the scale (and mins) bytes of the q4_0i4
+    results only: "f16" (or True) -> f16 bits in int16 planes (exact for
+    f16-valued scales), "bf16" -> bf16 planes; q8_0 and the other kinds
+    keep their planes, as in the JAX package. Its K padding for TPU tile
+    sizes (``maybe_pad_k``) is not copied: K-padded weights carried across
+    still run (``quant/linear.py`` pads x)."""
+    if pack_scales not in (False, None, True, "f16", "bf16"):
+        raise ValueError(f"pack_scales={pack_scales!r}")
+
+    def leaf(w):
+        if not isinstance(w, QTensor) or w.q.ndim != 2:
+            return w
+        w = to_int4(w)
+        if w.kind != "q4_0i4":
+            return w
+        if pack_scales in (True, "f16"):
+            return pack_scales_f16(w)
+        if pack_scales == "bf16":
+            return pack_scales_bf16(w)
+        return w
+
+    out = {k: leaf(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: leaf(v) for k, v in lp.items()} for lp in params["layers"]]
     return out
 
 

@@ -16,9 +16,16 @@ carry across unchanged:
   and q2_kp the nibble; q3_kp nibble - 4; q6_kp (nibble | qh << 4) - 32.
 - int8-plane kinds (q8_0, q5_0, q5_1, q2_k, q3_k, q6_k): ``q`` is (K, N)
   int8 holding the value itself.
-- ``scales`` is (K//block, N), f32 or bf16: block 32 for the _0/_1 kinds
-  and the folded q4_K/q5_K, 16 for the folded q2/q3/q6_K. Value =
-  q * scale[k // block, n].
+- q4_0i4, the int4-plane kind of the ``--scan`` program (``to_int4``):
+  signed values in [-8, 7] at 0.5 byte a value. Torch has no int4 dtype,
+  so ``q`` is (K//2, N) uint8 in q4_0's block-local layout, each nibble
+  holding value + 8 (offset binary). A q4_0 plane is therefore already a
+  q4_0i4 plane byte for byte, and so are the nibbles of q4_1 and q2_kp
+  once their mins absorb the shift; q3_kp's nibbles move up by 4. Blocks
+  of 32 rows (from q4_0 and q4_1) or 16 (from q2_kp and q3_kp).
+- ``scales`` is (K//block, N), f32, bf16 or int16 holding f16 bits
+  (``pack_scales_f16``): block 32 for the _0/_1 kinds and the folded
+  q4_K/q5_K, 16 for the folded q2/q3/q6_K. Value = q * scale[k // block, n].
 - ``mins`` (affine kinds q4_1, q5_1, q2_k, q2_kp) has the scales' layout
   and adds ``mins[k // block, n]``. For q6_kp the slot instead carries the
   (K//4, N) uint8 qh plane: byte (8*b + i, n) holds the high 2 bits of
@@ -43,20 +50,16 @@ import torch
 
 from tpu_llm_torch.quant import blocks as qblocks
 
-PACKED_KINDS = ("q4_0", "q4_1", "q2_kp", "q3_kp", "q6_kp")
+PACKED_KINDS = ("q4_0", "q4_1", "q2_kp", "q3_kp", "q6_kp", "q4_0i4")
 INT8_KINDS = ("q8_0", "q5_0", "q5_1", "q2_k", "q3_k", "q6_k")
 KINDS = PACKED_KINDS + INT8_KINDS
-
-# the int4-plane kind and its f16-bit (int16) scale planes come only from
-# the JAX package's unpack_params_int4, which its --scan program runs
-SCAN_SLICE = ("the --scan / CUDA-graph decode slice of ROADMAP.md queue 1 "
-              "(item 1) brings q4_0i4 weights and int16 f16-bit scale planes")
+PLANE_DTYPES = (torch.float32, torch.bfloat16, torch.int16)   # int16: f16 bits
 
 
 @dataclasses.dataclass
 class QTensor:
     q: torch.Tensor        # packed quants, see module docstring
-    scales: torch.Tensor   # (K//block, N) float32 or bfloat16
+    scales: torch.Tensor   # (K//block, N) float32, bfloat16 or int16 (f16 bits)
     kind: str              # one of KINDS
     mins: Optional[torch.Tensor] = None   # affine offsets, or q6_kp's qh plane
 
@@ -264,6 +267,28 @@ def qtensor_from_ggml(ggml_type: int, raw: np.ndarray, rows: int, row_len: int,
     raise ValueError(f"unsupported ggml type for QTensor: {ggml_type}")
 
 
+def plane_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A numpy array (ml_dtypes bf16 included: its bits are carried) as a
+    tensor on ``device``."""
+    a = np.array(a)   # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def qtensor_from_numpy(q, scales, kind: str, mins=None, device="cpu") -> QTensor:
+    """The JAX package's QTensor planes, as numpy, -> a QTensor. Its
+    q4_0i4 value plane is a (K, N) int4 array (ml_dtypes, one byte a
+    value), packed here into the port's nibble layout."""
+    q = np.asarray(q)
+    if kind == "q4_0i4" and q.dtype.name == "int4":
+        *lead, K, N = q.shape
+        u = (q.astype(np.int16) + 8).astype(np.uint8).reshape(*lead, K // 32, 32, N)
+        q = (u[..., :16, :] | (u[..., 16:, :] << 4)).reshape(*lead, K // 2, N)
+    return QTensor(plane_from_numpy(q, device), plane_from_numpy(scales, device), kind,
+                   None if mins is None else plane_from_numpy(mins, device))
+
+
 def quantize_tensor(w: np.ndarray, kind: str = "q4_0", device="cpu") -> QTensor:
     """Quantize a float (K, N) logical weight (tests / converters): ``kind``
     names a ggml codec (q4_0 ... q5_1, q2_k ... q6_k); the K-quants load
@@ -271,9 +296,7 @@ def quantize_tensor(w: np.ndarray, kind: str = "q4_0", device="cpu") -> QTensor:
     from tpu_llm_torch.io import gguf as gg
 
     ggml_type = {name: t for t, name in gg.QUANT_CODECS.items()}.get(kind)
-    if ggml_type is None:
-        if kind == "q4_0i4":
-            raise NotImplementedError(f"quantize_tensor({kind!r}): {SCAN_SLICE}")
+    if ggml_type is None:      # q4_0i4 too: only to_int4 makes it
         raise ValueError(kind)
     k, n = w.shape
     flat = np.ascontiguousarray(np.asarray(w, np.float32).T).reshape(-1)
@@ -329,20 +352,65 @@ def pack_q6_k(qt: QTensor) -> QTensor:
     return QTensor(ql, qt.scales, "q6_kp", qh)
 
 
+def to_int4(qt: QTensor) -> QTensor:
+    """q4_0 / q4_1 / q2_kp / q3_kp -> the int4-plane kind q4_0i4 (the
+    ``--scan`` program's weights); other kinds are returned as they are.
+    Same logical weights and scales. q4_1 and q2_kp recentre into the
+    signed range through their mins: q*s + m == (q-8)*s + (m + 8s), the
+    new mins computed in f32 and kept at the scales' width (bf16 planes
+    stay bf16). q3_kp's values are in range already (nibble + 4). The q
+    plane is shared, not copied, for q4_0, q4_1 and q2_kp (module
+    docstring)."""
+    if qt.kind in ("q4_1", "q2_kp"):
+        s = unpack_scales_f16(qt.scales)
+        mins = _to_plane_dtype(unpack_scales_f16(qt.mins) + 8.0 * s, qt.scales.dtype)
+        return QTensor(qt.q, qt.scales, "q4_0i4", mins)
+    if qt.kind == "q3_kp":
+        return QTensor(qt.q + 0x44, qt.scales, "q4_0i4")   # nibbles <= 7: no carry
+    if qt.kind == "q4_0":
+        return QTensor(qt.q, qt.scales, "q4_0i4")
+    return qt
+
+
+def _to_plane_dtype(p: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype == torch.int16:
+        return p.to(torch.float16).view(torch.int16)
+    return p.to(dtype)
+
+
+def pack_scales_f16(qt: QTensor) -> QTensor:
+    """f32 (or bf16) scale and mins planes -> f16 bits stored as int16:
+    half the bytes of f32, exact for f16-valued scales (GGUF's block
+    formats store an f16 ``d``); folded K-quant products round. The
+    kernel rebuilds f32 from the bits in registers."""
+    if qt.scales.dtype == torch.int16:
+        return qt
+    affine = qt.mins is not None and qt.kind != "q6_kp"
+    return QTensor(qt.q, _to_plane_dtype(qt.scales, torch.int16), qt.kind,
+                   _to_plane_dtype(qt.mins, torch.int16) if affine else qt.mins)
+
+
 def pack_scales_bf16(qt: QTensor) -> QTensor:
     """f32 scale (and mins) planes -> bf16: half the scale bytes, rounding
-    each block's scale by at most 2^-8 relative."""
-    if qt.scales.dtype == torch.bfloat16:
+    each block's scale by at most 2^-8 relative. bf16 and int16 planes are
+    left as they are."""
+    if qt.scales.dtype in (torch.bfloat16, torch.int16):
         return qt
     affine = qt.mins is not None and qt.kind != "q6_kp"
     return QTensor(qt.q, qt.scales.bfloat16(), qt.kind,
                    qt.mins.bfloat16() if affine else qt.mins)
 
 
+def unpack_scales_f16(p: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A scale or mins plane as ``dtype``: int16 planes hold f16 bits."""
+    if p.dtype == torch.int16:
+        return p.view(torch.float16).to(dtype)
+    return p.to(dtype)
+
+
 def _check_plane_dtype(qt: QTensor):
-    if qt.kind not in KINDS or qt.scales.dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"QTensor kind {qt.kind} with {qt.scales.dtype} scales: {SCAN_SLICE}")
+    if qt.kind not in KINDS or qt.scales.dtype not in PLANE_DTYPES:
+        raise ValueError(f"QTensor kind {qt.kind} with {qt.scales.dtype} scales")
 
 
 def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
@@ -351,7 +419,7 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     affine kinds; computed in ``dtype``."""
     _check_plane_dtype(qt)
     affine = qt.mins is not None
-    if qt.kind == "q4_0":
+    if qt.kind in ("q4_0", "q4_0i4"):
         vals = unpack_q4(qt.q)
     elif qt.kind in ("q4_1", "q2_kp"):
         vals = unpack_q4_unsigned(qt.q)
@@ -369,9 +437,9 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         vals = qt.q
     vals = vals.to(dtype)
     rep = vals.shape[-2] // qt.scales.shape[-2]
-    out = vals * torch.repeat_interleave(qt.scales.to(dtype), rep, dim=-2)
+    out = vals * torch.repeat_interleave(unpack_scales_f16(qt.scales, dtype), rep, dim=-2)
     if affine:
-        out = out + torch.repeat_interleave(qt.mins.to(dtype), rep, dim=-2)
+        out = out + torch.repeat_interleave(unpack_scales_f16(qt.mins, dtype), rep, dim=-2)
     return out
 
 

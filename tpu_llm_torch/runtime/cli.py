@@ -3,10 +3,14 @@
 The reference flags -m/--model, -p/--prompt, -s/--tokenizer,
 -t/--temperature, -n/--num_tokens (total incl. prompt echo), -v/--verbose,
 plus --dtype f32|bf16|native, --cache-dtype f32|bf16, --seed, --max-seq,
---rope, --fold-norms and --device (cuda unless told otherwise). Any other flag of the
-JAX package's CLI is refused by argparse. Output contract
-(``tpu_llm/runtime/cli.py``): the streamed raw token bytes, then a blank
-line, the inference time, the decode tokens/second and the TTFT.
+--rope, --fold-norms, --scan (the CUDA-graph decode loop), --spec K and
+--draft GGUF (speculative decoding), --timings (the five-bucket report)
+and --device (cuda unless told otherwise). Any other flag of the JAX
+package's CLI is refused by argparse. Output contract
+(``tpu_llm/runtime/cli.py``): the streamed raw token bytes (with --scan,
+the decoded text at the end instead), then a blank line, the inference
+time, the decode tokens/second and the TTFT, then the timing report or a
+line that names --timings.
 """
 
 from __future__ import annotations
@@ -40,6 +44,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rope", default="interleaved",
                    choices=["interleaved", "neox", "llmf90"],
                    help="rope variant; 'llmf90' reproduces the Fortran bit-for-bit")
+    p.add_argument("--scan", action="store_true",
+                   help="decode loop as a captured CUDA graph (no streaming)")
+    p.add_argument("--spec", type=int, default=0, metavar="K",
+                   help="speculative decoding: verify K drafted tokens per forward "
+                        "(greedy only; output is exactly the plain greedy stream). "
+                        "Drafts come from prompt lookup, or from --draft when given")
+    p.add_argument("--draft", default=None, metavar="GGUF",
+                   help="small same-vocabulary draft model for two-model "
+                        "speculation (needs --spec K)")
+    p.add_argument("--timings", action="store_true",
+                   help="after generation, measure and print the reference's five "
+                        "per-token timing buckets (qkv/rope/attention/ffn/classifier), "
+                        "each slope-timed at the run's decode shapes")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
 
@@ -88,6 +105,15 @@ def main(argv=None) -> int:
     adapter = ModelAdapter.llama(cfg, cache_dtype=cache_dtype, bos_id=bos_id,
                                  device=device)
     engine = Engine(params, adapter, max_seq=max_seq, device=device)
+    draft_engine = None
+    if args.draft:
+        dparams, dcfg = load_gguf(GGUFFile(args.draft), dtype_policy=args.dtype,
+                                  device=device)
+        if args.rope != "interleaved" and args.rope != dcfg.rope_variant:
+            dcfg = dataclasses.replace(dcfg, rope_variant=args.rope)
+        draft_engine = Engine(dparams, ModelAdapter.llama(dcfg, cache_dtype=cache_dtype,
+                                                          bos_id=bos_id, device=device),
+                              max_seq=max_seq, device=device)
 
     prompt_ids = tokenizer.encode(args.prompt) if args.prompt else []
     n = args.num_tokens
@@ -104,13 +130,25 @@ def main(argv=None) -> int:
 
     seed = args.seed if args.seed is not None else int(time.time_ns() % (2**31))
     res = engine.generate(prompt_ids, n_total=n, temperature=args.temperature,
-                          seed=seed, stream=stream)
+                          seed=seed, stream=None if args.scan else stream,
+                          use_scan=args.scan, speculative_k=args.spec, draft=draft_engine)
+    if args.scan:
+        out.write(tokenizer.decode(res.tokens))
+        out.flush()
 
     # reference output contract
     print()
     print(f" Inference time: {res.total_s:10.4f} seconds")
     print(f" {res.tokens_per_s:10.4f} tokens/second (decode)")
     print(f" TTFT: {res.ttft_s * 1000:10.2f} ms")
+    if args.timings:
+        from tpu_llm_torch.runtime.phase_timing import format_report, measure_phase_times
+
+        res.phase_times = measure_phase_times(params, cfg, batch=1, pos=len(res.tokens),
+                                              max_seq=max_seq)
+        print(format_report(res.phase_times))
+    else:
+        print(" Timings: pass --timings for the per-bucket report")
     return 0
 
 
