@@ -14,16 +14,21 @@ Phases, one JSON line each:
 2. kernels — each hand-written kernel against its plain PyTorch twin on
    the card at the main path's shapes (TinyLlama-1.1B widths): error
    against a stated tolerance (f32 inputs: 1e-3 * max|plain|; bf16:
-   2e-2 * max|plain|), kernel / plain / library times (CUDA events, L2
-   flushed before every launch, median), and the least time the card
+   2e-2 * max|plain|) and the number of outputs that differ from the
+   twin's at all (n_diff of n_out), kernel / plain / library times (CUDA
+   events, L2 flushed before every launch, median), and the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type, whichever is larger).
    The paged decode kernels (K5, K6) run at serving shapes (batch 8, 32/4
    heads, 1024-row tables, shuffled blocks, positions 15-1023), and again
    with every block past pos // BS and block 0 poisoned (NaN): the output
-   must not change. K2 and K4 run again at the shapes serving gives them
-   (bf16 q over bf16 planes: K2 at batch 8 with positions 15-1023, K4 over
-   one slot's 1024-row view at offset 256 and 0). K1 runs for q4_0 and
+   must not change. K2 (split over the sequence) and K4 (tensor cores for
+   bf16 q) run at the shapes the `llm` CLI gives them (bf16 q over its f32
+   2048-row cache: K2 at positions 15, 1000, 2047; K4 at T 512, offset
+   0), and again at the shapes serving gives them (bf16 q over bf16
+   planes: K2 at batch 8 with positions 15-1023, K4 over one slot's
+   1024-row view at offset 256 and 0); the kernels line reports the
+   serving case and, as `cli_case`, the CLI's. K1 runs for q4_0 and
    q8_0 (f32 planes) at every projection and for every other kind (q4_1,
    q5_0, q5_1, q2_k, q2_kp, q3_k, q3_kp, q6_k, q6_kp; f32 and bf16 planes;
    random planes in each kind's range) at w13 and wcls, 1 and 8 rows (with
@@ -238,6 +243,8 @@ def check_kernels(torch, timer):
     cases = {"qmatmul": [], "flash_decode_attention": [], "flash_decode_fused": [],
              "flash_gqa_attention": [], "ffn_fused": []}
 
+    n_diff = {}
+
     def compare(name, got, want, bf16: bool, **info):
         got, want = got.float(), want.float()
         if not bool(torch.isfinite(got).all()):
@@ -247,11 +254,14 @@ def check_kernels(torch, timer):
         tol = (2e-2 if bf16 else 1e-3) * ref
         if not err <= tol:
             fail(f"{name} {info}: max abs err {err} > tolerance {tol}")
+        # outputs that differ from the twin's at all (in bf16: rounding flips)
+        n_diff[name] = dict(n_diff=int((got != want).sum().item()), n_out=got.numel())
         return err, tol
 
     def record(name, info, err, tol, ms, plain_ms, lib_ms, bmoved, ops, kind):
         b_ms, b_by = bound(bmoved, ops, kind)
-        row = dict(info, max_abs_err=err, tol=tol, kernel_ms=ms, plain_ms=plain_ms,
+        row = dict(info, **n_diff[name], max_abs_err=err, tol=tol, kernel_ms=ms,
+                   plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         cases[name].append(row)
         emit("kernel", name=name, **row)
@@ -1612,6 +1622,11 @@ def megakernel_full_width(torch, params, cfg):
 
 # -- main --------------------------------------------------------------------------
 
+# the case the `llm` CLI runs (bf16 q over its f32 cache), reported beside
+# the serving pick as `cli_case`
+CLI_CASES = {"flash_decode_attention": dict(cache="f32", pos=1000),
+             "flash_gqa_attention": dict(T=512, cache="f32")}
+
 KERNELS = [
     ("qmatmul", "tpu_llm_torch/csrc/qmatmul.cu", "tpu_llm/quant/pallas_matmul.py:59",
      dict(weight="w13", kind="q4_0", rows=1)),
@@ -1674,9 +1689,12 @@ def main() -> int:
     phases = (fw, sc, sv, mk, kq)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
+    def case(name, pick):
+        return next(c for c in cases[name] if all(c.get(k) == v for k, v in pick.items()))
+
     out = []
     for name, source, replaces, pick in KERNELS:
-        rep = next(c for c in cases[name] if all(c.get(k) == v for k, v in pick.items()))
+        rep = case(name, pick)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": total[name],
@@ -1694,6 +1712,12 @@ def main() -> int:
                 for c in cases[name] if c["weight"] == "w13" and c["rows"] == 1}
         if name == "ffn_fused":
             out[-1]["unfused_ms"] = rep["unfused_ms"]
+        if name in CLI_CASES:
+            cli = case(name, CLI_CASES[name])
+            out[-1]["cli_case"] = dict(
+                {k: cli[k] for k in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by")},
+                ms=cli["kernel_ms"], case=CLI_CASES[name])
     print(smi_line)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -103,13 +103,79 @@ def test_decode_kernels_match_plain(gen, D, H, Hkv, qdt, cdt):
         assert torch.equal(k1, k2) and torch.equal(v1, v2)   # row pos only
 
 
+_DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.bfloat16)]
+
+
+def _edge_positions(S, rows):
+    """0, S - 1, and each split edge e = rows * i with e - 1 and e + 1."""
+    pos = {0, S - 1}
+    for e in range(rows, S, rows):
+        pos |= {e - 1, e, e + 1}
+    return sorted(p for p in pos if 0 <= p < S)
+
+
+@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=["f32", "bf16q", "bf16"])
+@pytest.mark.parametrize("B,S,case", [(8, 1024, "ragged"), (1, 2048, "edges"),
+                                      (3, 1000, "edges"), (2, 64, "edges"),
+                                      (1, 130, "edges")])
+@pytest.mark.parametrize("D,H,Hkv", [(64, 32, 4), (128, 8, 2), (16, 6, 2), (64, 32, 2)])
+def test_decode_split_kernel_matches_plain(gen, qdt, cdt, B, S, case, D, H, Hkv):
+    """K2 split over the sequence (decode_splits): serving's ragged batch
+    8, and positions on and around every split edge, against the plain
+    twin and the plain split-and-combine."""
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(qdt)
+    kc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(cdt)
+    vc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(cdt)
+    rows, n_split = FA.decode_splits(B, Hkv, S)
+    assert n_split > 1 or S <= 64
+    if case == "ragged":
+        runs = [[15, 100, 255, 256, 511, 700, 1000, 1023][:B]]
+    else:
+        edge = _edge_positions(S, rows)
+        runs = [[edge[(i + r) % len(edge)] for r in range(B)] for i in range(len(edge))]
+    bf16 = qdt == torch.bfloat16
+    for pos in runs:
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        launches = FA.flash_decode_attention.launches
+        got = FA.flash_decode_attention(q, kc, vc, p)
+        assert FA.flash_decode_attention.launches == launches + 1
+        _close(got, FA.flash_decode_attention_plain(q, kc, vc, p), bf16)
+        _close(got, FA.flash_decode_attention_split_plain(q, kc, vc, p), bf16)
+
+
+def test_decode_split_kernel_replays_in_a_graph(gen):
+    """K2 captured in a CUDA graph (the position in a device tensor, the
+    split scratch from the graph's pool) and replayed at three positions:
+    each replay equals the eager call there, and the merge counters are
+    back at 0 after every launch."""
+    B, S, H, Hkv, D = 1, 2048, 32, 4, 64
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").bfloat16()
+    kc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda")
+    vc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda")
+    pos = torch.tensor([7], dtype=torch.int32, device="cuda")
+    FA.flash_decode_attention(q, kc, vc, pos)              # builds and warms up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = FA.flash_decode_attention(q, kc, vc, pos)
+    for p in (63, 64, 2047):
+        pos.fill_(p)
+        graph.replay()
+        want = FA.flash_decode_attention(q, kc, vc, torch.tensor([p], dtype=torch.int32,
+                                                                device="cuda"))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), p
+    # every launch leaves the merge counters at 0 for the next one
+    assert FA._split_counters[q.device].count_nonzero().item() == 0
+
+
 @pytest.mark.parametrize("D,H,Hkv", [(16, 4, 2), (64, 32, 4), (128, 8, 2)])
 @pytest.mark.parametrize("T,S,offset", [(17, 64, 0), (64, 64, 0), (100, 256, 7),
-                                        (130, 200, 70)])
-@pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
-                                     (torch.bfloat16, torch.float32),
-                                     (torch.bfloat16, torch.bfloat16)],
-                         ids=["f32", "bf16q", "bf16"])
+                                        (130, 200, 70), (1, 5, 4), (95, 129, 34),
+                                        (300, 1000, 511), (64, 130, 66), (200, 150, 0),
+                                        (513, 1024, 0)])
+@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=["f32", "bf16q", "bf16"])
 def test_prefill_kernel_matches_plain(gen, D, H, Hkv, T, S, offset, qdt, cdt):
     B = 2
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(qdt)

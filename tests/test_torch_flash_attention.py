@@ -126,3 +126,86 @@ def test_wrappers_refuse_mixed_devices():
     kc = torch.zeros(1, 8, 32, device="meta")
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         tfa.flash_decode_attention(q, kc, kc, torch.zeros(1, dtype=torch.int32))
+
+
+# -- K2's split over the sequence ----------------------------------------------
+
+@pytest.mark.parametrize("B,Hkv,S", [(8, 4, 1024), (1, 4, 2048), (2, 2, 64), (8, 4, 16),
+                                     (3, 1, 4096), (1, 8, 130), (32, 8, 2048)])
+def test_decode_splits_cover_the_cache_in_whole_tiles(B, Hkv, S):
+    rows, n = tfa.decode_splits(B, Hkv, S)
+    assert rows % tfa.SPLIT_TILE == 0                       # whole tiles
+    assert rows * n >= S and rows * (n - 1) < S             # [0, S), no empty tail
+    # the CTA target: as many splits as it asks for (or one a tile), and
+    # no fewer than whole tiles allow: a split one tile shorter would pass it
+    tiles = -(-S // tfa.SPLIT_TILE)
+    want = min(tiles, -(-tfa.SPLIT_TARGET_CTAS // (B * Hkv)))
+    per_split = rows // tfa.SPLIT_TILE
+    assert n <= want
+    assert per_split == 1 or -(-tiles // (per_split - 1)) > want
+
+
+def test_decode_splits_read_shapes_only():
+    """The plan is a function of (B, Hkv, S): the wrapper takes no
+    position into it, so a captured graph replays it at any position."""
+    import inspect
+
+    assert list(inspect.signature(tfa.decode_splits).parameters) == ["B", "Hkv", "max_rows"]
+    assert tfa.decode_splits(8, 4, 1024) == (128, 8)
+    assert tfa.decode_splits(1, 4, 2048) == (64, 32)
+    assert tfa.decode_splits(2, 4, 2048) == (64, 32)
+    assert tfa.decode_splits(1, 4, 64) == (64, 1)
+
+
+def _split_case(rng, B, S, H=8, Hkv=2, D=64):
+    q, k, v = _rand(rng, B, 1, H, D), _rand(rng, B, S, Hkv, D), _rand(rng, B, S, Hkv, D)
+    return q, k, v
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 7])
+@pytest.mark.parametrize("where", ["zero", "edge", "past_edge", "last"])
+def test_decode_split_plain_matches_plain_and_pallas(n_split, where):
+    """K2's split-and-combine (plain PyTorch, the kernel's order) against
+    the plain twin and the Pallas decode kernel in interpret mode, with
+    pos at 0, on a split edge, one past it, and at S - 1."""
+    rows = 64
+    S = rows * n_split
+    B = 2
+    rng = np.random.default_rng(10 * n_split + len(where))
+    q, k, v = _split_case(rng, B, S)
+    edge = rows * (n_split // 2)
+    p = {"zero": 0, "edge": edge, "past_edge": edge + 1, "last": S - 1}[where]
+    positions = np.asarray([p, max(p - 1, 0)], np.int32)
+    Hkv, D = k.shape[2], k.shape[3]
+    tk, tv = _t(k).reshape(B, S, Hkv * D), _t(v).reshape(B, S, Hkv * D)
+    got = tfa.flash_decode_attention_split_plain(_t(q), tk, tv, _t(positions), rows)
+    np.testing.assert_allclose(
+        got.numpy(), tfa.flash_decode_attention_plain(_t(q), tk, tv, _t(positions)).numpy(),
+        **TOL)
+    want = jfa.flash_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(positions), chunk=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_decode_split_plain_empty_splits_and_bf16():
+    """Splits wholly past pos add nothing (every row at pos 0 with 7
+    splits); with bf16 q and cache the split route rounds p to bf16 and
+    stays within bf16 tolerance of the twin."""
+    rng = np.random.default_rng(77)
+    B, S = 3, 7 * 64
+    q, k, v = _split_case(rng, B, S)
+    tk, tv = _t(k).reshape(B, S, -1), _t(v).reshape(B, S, -1)
+    pos = torch.tensor([0, 64, 446], dtype=torch.int32)
+    got = tfa.flash_decode_attention_split_plain(_t(q), tk, tv, pos, 64)
+    np.testing.assert_allclose(got.numpy(),
+                               tfa.flash_decode_attention_plain(_t(q), tk, tv, pos).numpy(),
+                               **TOL)
+    # pos 0 sees row 0 only: the output is v[0] of the head's kv head
+    np.testing.assert_allclose(got[0, 0].reshape(2, 4, 64).numpy(),
+                               np.broadcast_to(v[0, 0][:, None, :], (2, 4, 64)), **TOL)
+    qb, kb, vb = _t(q).bfloat16(), tk.bfloat16(), tv.bfloat16()
+    got_b = tfa.flash_decode_attention_split_plain(qb, kb, vb, pos, 64)
+    want_b = tfa.flash_decode_attention_plain(qb, kb, vb, pos)
+    assert got_b.dtype == torch.bfloat16
+    err = (got_b.float() - want_b.float()).abs().max().item()
+    assert err <= 2e-2 * want_b.float().abs().max().item()

@@ -279,6 +279,6 @@ def test_paged_decode_q_twin_matches_pallas(positions):
 
 def test_paged_splits_cover_the_table():
     for B, Hkv, rows in [(8, 4, 1024), (1, 4, 2048), (2, 2, 64), (8, 4, 16), (3, 1, 4096)]:
-        per, n = FA.paged_splits(B, Hkv, rows)
-        assert per % FA.PAGED_TILE == 0 and per * n >= rows and per * (n - 1) < rows
-        assert n == 1 or B * Hkv * (n - 1) < FA.PAGED_TARGET_CTAS
+        per, n = FA.decode_splits(B, Hkv, rows)
+        assert per % FA.SPLIT_TILE == 0 and per * n >= rows and per * (n - 1) < rows
+        assert n == 1 or B * Hkv * (n - 1) < FA.SPLIT_TARGET_CTAS

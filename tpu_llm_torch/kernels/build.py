@@ -44,9 +44,10 @@ SIGNATURES = {
     "tlt_qmatmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _I, _P, _I, _I, _I, _I, _I, _P],
     # q, q_bf16, k_cache, v_cache, cache_bf16, k_cur, v_cur, pos, out,
-    # B, H, Hkv, D, S, sm_scale, stream
-    "tlt_flash_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _F, _P],
+    # part_acc, part_ml, counters, B, H, Hkv, D, S, rows_per_split, n_split,
+    # sm_scale, stream
+    "tlt_flash_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, q_bf16, k_cache, v_cache, cache_bf16, out, B, T, H, Hkv, D, S,
     # offset, sm_scale, stream
     "tlt_flash_prefill": [_P, _I, _P, _P, _I, _P,

@@ -5,17 +5,21 @@ Three kernels, each replacing a Pallas kernel of
 ``tpu_llm/ops/flash_attention.py``:
 
 - ``flash_decode_attention`` (K2, ``_decode_kernel``): one query a batch
-  row against the flat (B, S, Hkv*D) cache, keys s <= pos[b]. Every
-  non-deferred decode step (the ``llm`` CLI) runs it.
+  row against the flat (B, S, Hkv*D) cache, keys s <= pos[b], split over
+  the sequence (``decode_splits``) and merged by the last split to finish,
+  in one launch. Every
+  non-deferred decode step (the ``llm`` CLI, ``--scan``, the dense
+  ``BatchEngine``) runs it.
 - ``flash_decode_fused`` (K3, ``_decode_fused_kernel``): the same
   attention against the STALE cache (s < pos) plus this step's
   k_cur/v_cur as key pos, and the store of k_cur/v_cur at row pos — in
   place, where the JAX kernel returns aliased planes.
   ``decode_step(defer_kv=True)`` runs it.
 - ``flash_gqa_attention`` (K4, ``_flash_kernel``): causal prefill, query t
-  sees s <= offset + t. Prefill takes it when the einsum path's scores
-  would pass 64 MB (models/llama._attend), and the paged engine's long
-  prefill chunks over the gathered view (ops/paged_kv.py).
+  sees s <= offset + t, on tensor cores for bf16 q. Prefill takes it when
+  the einsum path's scores would pass 64 MB (models/llama._attend), and
+  the paged engine's long prefill chunks over the gathered view
+  (ops/paged_kv.py).
 
 And, in ``csrc/paged_attention.cu``:
 
@@ -28,7 +32,8 @@ And, in ``csrc/paged_attention.cu``:
 
 Each wrapper takes its plain twin for CPU tensors and launches its kernel
 for CUDA tensors, or raises; ``<wrapper>.launches`` counts the kernel
-launches. The kernels take head_dim a multiple of 16 up to 128.
+launches. The kernels take head_dim a multiple of 16 up to 128; K2 and K4
+copy 16-byte chunks, so their tensors start on 16-byte boundaries.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from __future__ import annotations
 import torch
 
 from tpu_llm_torch.kernels import build
-from tpu_llm_torch.ops.attention import gqa_attention, gqa_attention_deferred
+from tpu_llm_torch.ops.attention import (NEG_INF, _bf16_inputs, gqa_attention,
+                                         gqa_attention_deferred)
 from tpu_llm_torch.ops.kv_cache import QuantKV, gather_scale_pool
 
 
@@ -84,6 +90,52 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
+def _check_aligned(name: str, *ts: torch.Tensor):
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: the kernel copies 16-byte chunks, so every "
+                         f"tensor must start on a 16-byte boundary")
+
+
+# -- split decode (K2, K5, K6) ------------------------------------------------
+
+# the grid a split decode launch aims for: about two CTAs per SM of the H100
+SPLIT_TARGET_CTAS = 264
+SPLIT_TILE = 64          # keys per tile of the split decode kernels
+
+
+# K2's merge counters: one int32 per (b, kv head), a buffer per device,
+# zero-filled once. Each launch leaves them at 0 again (the last split of a
+# (b, kv head) resets its counter), so launches on one stream and CUDA
+# graph replays share them.
+SPLIT_COUNTERS = 1 << 16
+_split_counters = {}
+
+
+def _merge_counters(device, n: int) -> torch.Tensor:
+    if n > SPLIT_COUNTERS:
+        raise ValueError(f"B * Hkv = {n}: the split decode merges at most "
+                         f"{SPLIT_COUNTERS} (batch row, kv head) pairs")
+    counters = _split_counters.get(device)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode_attention makes its merge counters at "
+                               "its first call: call it once before a graph capture")
+        counters = torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device)
+        _split_counters[device] = counters
+    return counters
+
+
+def decode_splits(B: int, Hkv: int, max_rows: int):
+    """(rows_per_split, n_split): the sequence splits over the grid until
+    B * Hkv * n_split reaches SPLIT_TARGET_CTAS, each split a whole number
+    of 64-row tiles. It reads shapes only, never positions, so a captured
+    CUDA graph replays it at any position."""
+    tiles = -(-max_rows // SPLIT_TILE)
+    want = min(tiles, max(1, -(-SPLIT_TARGET_CTAS // (B * Hkv))))
+    rows = -(-tiles // want) * SPLIT_TILE
+    return rows, -(-max_rows // rows)
+
+
 # -- K2 ----------------------------------------------------------------------
 
 def flash_decode_attention_plain(q, k_cache, v_cache, positions):
@@ -92,14 +144,59 @@ def flash_decode_attention_plain(q, k_cache, v_cache, positions):
     return gqa_attention(q, k_cache, v_cache, pos.reshape(B, 1))
 
 
+def flash_decode_attention_split_plain(q, k_cache, v_cache, positions,
+                                       rows_per_split=None):
+    """K2's split-and-merge in plain PyTorch (for the tests): each split
+    of ``rows_per_split`` rows (``decode_splits`` by default) computes its
+    unnormalised partial (acc, m, l) over its rows s <= pos[b], an empty
+    split (m = NEG_INF, l = 0, acc = 0) past pos; the partials merge in
+    split order as the kernel's last split merges them (empty splits add
+    nothing)."""
+    B, _, H, D = q.shape
+    S = k_cache.shape[1]
+    pos = _row_positions(positions, B, q.device).clamp(max=S - 1).long()
+    k4 = k_cache.reshape(B, S, -1, D).float()
+    v4 = v_cache.reshape(B, S, -1, D).float()
+    Hkv = k4.shape[2]
+    if rows_per_split is None:
+        rows_per_split = decode_splits(B, Hkv, S)[0]
+    qg = q.float().reshape(B, Hkv, H // Hkv, D)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k4) * (1.0 / D ** 0.5)
+    visible = torch.arange(S, device=q.device)[None, :] <= pos[:, None]   # (B, S)
+    round_p = _bf16_inputs(q, k_cache, v_cache)
+    parts = []
+    for s0 in range(0, S, rows_per_split):
+        vis = visible[:, None, None, s0:s0 + rows_per_split]
+        sc = scores[..., s0:s0 + rows_per_split].masked_fill(~vis, NEG_INF)
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None]).masked_fill(~vis, 0.0)
+        l = p.sum(dim=-1)
+        if round_p:
+            p = p.bfloat16().float()
+        acc = torch.einsum("bhgs,bshd->bhgd", p, v4[:, s0:s0 + rows_per_split])
+        parts.append((acc, m, l))
+    m_all = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    acc_sum = torch.zeros_like(parts[0][0])
+    l_sum = torch.zeros_like(parts[0][1])
+    for acc, m, l in parts:
+        w = torch.exp(m - m_all)
+        l_sum = l_sum + w * l
+        acc_sum = acc_sum + w[..., None] * acc
+    inv = torch.where(l_sum == 0, torch.ones_like(l_sum), 1.0 / l_sum)
+    return (acc_sum * inv[..., None]).reshape(B, 1, H, D).to(q.dtype)
+
+
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor,
                            positions: torch.Tensor) -> torch.Tensor:
     """q (B, 1, H, D); caches (B, S, Hkv*D) or (B, S, Hkv, D); positions
-    (1,), (B,) or (B, 1). Returns (B, 1, H, D) in q's dtype."""
+    (1,), (B,) or (B, 1). Returns (B, 1, H, D) in q's dtype. On the card,
+    launches on one device share its merge counters: make them on one
+    stream at a time."""
     if _on_cpu(q, k_cache, v_cache):
         return flash_decode_attention_plain(q, k_cache, v_cache, positions)
     _check_kernel_args(q, k_cache, v_cache)
+    _check_aligned("flash_decode_attention", k_cache, v_cache)
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError(f"decode attention takes one query a row, got T={T}")
@@ -107,13 +204,20 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kc = k_cache.reshape(B, S, -1)
     vc = v_cache.reshape(B, S, -1)
     Hkv = kc.shape[2] // D
+    rows, n_split = decode_splits(B, Hkv, S)
     q = q.contiguous()
     pos = _row_positions(positions, B, q.device)
     out = torch.empty_like(q)
+    scratch = (None, None, None)
+    if n_split > 1:
+        part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32, device=q.device)
+        scratch = (part_acc.data_ptr(), part_ml.data_ptr(),
+                   _merge_counters(q.device, B * Hkv).data_ptr())
     code = build.lib().tlt_flash_decode(
         q.data_ptr(), _is_bf16(q), kc.data_ptr(), vc.data_ptr(), _is_bf16(kc),
-        None, None, pos.data_ptr(), out.data_ptr(), B, H, Hkv, D, S,
-        1.0 / D ** 0.5, build.stream_ptr(q.device))
+        None, None, pos.data_ptr(), out.data_ptr(), *scratch, B, H, Hkv, D, S, rows,
+        n_split, 1.0 / D ** 0.5, build.stream_ptr(q.device))
     build.check(code, "flash_decode_attention")
     flash_decode_attention.launches += 1
     return out
@@ -162,7 +266,7 @@ def flash_decode_fused(q: torch.Tensor, k_cache: torch.Tensor,
     code = build.lib().tlt_flash_decode(
         q.data_ptr(), _is_bf16(q), k_cache.data_ptr(), v_cache.data_ptr(),
         _is_bf16(k_cache), kcur.data_ptr(), vcur.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, H, HkvD // D, D, S, 1.0 / D ** 0.5,
+        out.data_ptr(), None, None, None, B, H, HkvD // D, D, S, S, 1, 1.0 / D ** 0.5,
         build.stream_ptr(q.device))
     build.check(code, "flash_decode_fused")
     flash_decode_fused.launches += 1
@@ -193,7 +297,10 @@ def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kc = k_cache.reshape(B, S, -1)
     vc = v_cache.reshape(B, S, -1)
     q = q.contiguous()
+    _check_aligned("flash_gqa_attention", q, kc, vc)
     out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
     code = build.lib().tlt_flash_prefill(
         q.data_ptr(), _is_bf16(q), kc.data_ptr(), vc.data_ptr(), _is_bf16(kc),
         out.data_ptr(), B, T, H, kc.shape[2] // D, D, S, int(offset),
@@ -207,21 +314,6 @@ flash_gqa_attention.launches = 0
 
 
 # -- K5 / K6: paged decode ---------------------------------------------------
-
-# the grid a paged decode launch aims for: about two CTAs per SM of the H100
-PAGED_TARGET_CTAS = 264
-PAGED_TILE = 64          # keys per tile in csrc/paged_attention.cu
-
-
-def paged_splits(B: int, Hkv: int, max_rows: int):
-    """(rows_per_split, n_split): the sequence splits over the grid until
-    B * Hkv * n_split reaches PAGED_TARGET_CTAS, each split a whole number
-    of 64-row tiles."""
-    tiles = -(-max_rows // PAGED_TILE)
-    want = min(tiles, max(1, -(-PAGED_TARGET_CTAS // (B * Hkv))))
-    rows = -(-tiles // want) * PAGED_TILE
-    return rows, -(-max_rows // rows)
-
 
 def _gather_pool(pool, block_table):
     """(N, BS, Hkv*D) pool through a (B, MB) table -> (B, MB*BS, Hkv*D)."""
@@ -270,7 +362,7 @@ def _paged_launch(name, q, k_pool, block_table, positions, call):
     B, _, H, D = q.shape
     Hkv = k_pool.shape[2] // D
     bs, mb = k_pool.shape[1], block_table.shape[1]
-    rows, n_split = paged_splits(B, Hkv, mb * bs)
+    rows, n_split = decode_splits(B, Hkv, mb * bs)
     q = q.contiguous()
     pos = _row_positions(positions, B, q.device)
     out = torch.empty_like(q)
