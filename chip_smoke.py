@@ -28,14 +28,18 @@ Phases, one JSON line each:
    0), and again at the shapes serving gives them (bf16 q over bf16
    planes: K2 at batch 8 with positions 15-1023, K4 over one slot's
    1024-row view at offset 256 and 0); the kernels line reports the
-   serving case and, as `cli_case`, the CLI's. K1 runs for q4_0 and
+   serving case and, as `cli_case`, the CLI's; K4 also runs its CUDA-core
+   body (f32 q over the CLI's f32 cache, T 512) beside f32 SDPA, reported
+   as `f32_q_case`. K1 runs for q4_0 and
    q8_0 (f32 planes) at every projection and for every other kind (q4_1,
    q5_0, q5_1, q2_k, q2_kp, q3_k, q3_kp, q6_k, q6_kp; f32 and bf16 planes;
    random planes in each kind's range) at w13 and wcls, 1 and 8 rows (with
    row_scale at w13, 8 rows); the default K-quant layouts (q4_1 and q6_k
    with bf16 planes: what Q4_K and Q6_K load as) at all five shapes. K1's
    library time is torch._weight_int4pack_mm (q4_0, and q4_1 through its
-   zero point). K1 on the --scan program's q4_0i4 (to_int4 of q4_0 at
+   zero point; at every row count, the 512-row prefill case included: the
+   kernels line reports it as `prefill_case`, and the 5-row verify window
+   as `verify_window_case`). K1 on the --scan program's q4_0i4 (to_int4 of q4_0 at
    every projection, of q4_1 / q3_kp / q2_kp at w13; f32, bf16 and
    f16-bit int16 planes; 1 and 8 rows), and at the 5 rows of a k = 4
    verify window (q4_0 and its q4_0i4, every projection). K3 again on
@@ -308,7 +312,7 @@ def check_kernels(torch, timer):
         plain_ms = timer.ms(lambda: qmatmul_plain(x, w, out_dtype=out_dtype, row_scale=rs))
         lib_ms = None
         if (kind in ("q4_0", "q4_1") or w.kind == "q4_0i4" and K // w.scales.shape[0] == 32) \
-                and rows <= 8 and rs is None:
+                and rs is None:
             lib_ms = int4pack_ms(torch, timer, x, w, want, info)
         record("qmatmul", info, err, tol, ms, plain_ms, lib_ms,
                w.nbytes + nbytes(x) + rows * N * got.element_size()
@@ -396,6 +400,20 @@ def check_kernels(torch, timer):
            timer.ms(lambda: F.scaled_dot_product_attention(
                qf, kt, vt, is_causal=True, enable_gqa=True)),
            nbytes(qp) * 2 + 2 * B * T * Hkv * D * it,
+           4.0 * B * H * D * T * (T + 1) / 2, "f32")
+    # K4's CUDA-core body: f32 q (the `llm` CLI's --dtype f32) over the same
+    # f32 cache, f32 SDPA beside it
+    qf32 = qp.float()
+    info = dict(B=B, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=0, q="f32", cache="f32")
+    got = FA.flash_gqa_attention(qf32, k4, v4, 0)
+    err, tol = compare("flash_gqa_attention", got,
+                       FA.flash_gqa_attention_plain(qf32, k4, v4, 0), False, **info)
+    record("flash_gqa_attention", info, err, tol,
+           timer.ms(lambda: FA.flash_gqa_attention(qf32, k4, v4, 0)),
+           timer.ms(lambda: FA.flash_gqa_attention_plain(qf32, k4, v4, 0)),
+           timer.ms(lambda: F.scaled_dot_product_attention(
+               qf, kt, vt, is_causal=True, enable_gqa=True)),
+           nbytes(qf32) * 2 + 2 * B * T * Hkv * D * it,
            4.0 * B * H * D * T * (T + 1) / 2, "f32")
     check_serving_shapes(torch, timer, g, compare, record)
     check_paged_kernels(torch, timer, g, compare, record, cases)
@@ -1625,7 +1643,11 @@ def megakernel_full_width(torch, params, cfg):
 # the case the `llm` CLI runs (bf16 q over its f32 cache), reported beside
 # the serving pick as `cli_case`
 CLI_CASES = {"flash_decode_attention": dict(cache="f32", pos=1000),
-             "flash_gqa_attention": dict(T=512, cache="f32")}
+             "flash_gqa_attention": dict(T=512, cache="f32", q="bf16")}
+# further cases reported beside the pick: K4's f32-q body, K1 at prefill rows
+EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q="f32")},
+               "qmatmul": {"prefill_case": dict(weight="w13", kind="q4_0", rows=512),
+                           "verify_window_case": dict(weight="w13", kind="q4_0", rows=5)}}
 
 KERNELS = [
     ("qmatmul", "tpu_llm_torch/csrc/qmatmul.cu", "tpu_llm/quant/pallas_matmul.py:59",
@@ -1712,12 +1734,15 @@ def main() -> int:
                 for c in cases[name] if c["weight"] == "w13" and c["rows"] == 1}
         if name == "ffn_fused":
             out[-1]["unfused_ms"] = rep["unfused_ms"]
+        extra = dict(EXTRA_CASES.get(name, {}))
         if name in CLI_CASES:
-            cli = case(name, CLI_CASES[name])
-            out[-1]["cli_case"] = dict(
-                {k: cli[k] for k in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
-                                     "bound_by")},
-                ms=cli["kernel_ms"], case=CLI_CASES[name])
+            extra["cli_case"] = CLI_CASES[name]
+        for key, pick_x in extra.items():
+            c = case(name, pick_x)
+            out[-1][key] = dict(
+                {k: c[k] for k in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")},
+                ms=c["kernel_ms"], case=pick_x)
     print(smi_line)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -170,6 +170,72 @@ def test_decode_split_kernel_replays_in_a_graph(gen):
     assert FA._split_counters[q.device].count_nonzero().item() == 0
 
 
+@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=["f32", "bf16q", "bf16"])
+@pytest.mark.parametrize("B,S", [(1, 2048), (3, 1000), (2, 64), (1, 130), (1, 1024)])
+@pytest.mark.parametrize("D,H,Hkv", [(64, 32, 4), (128, 8, 2), (16, 6, 2)])
+def test_fused_split_kernel_matches_plain(gen, qdt, cdt, B, S, D, H, Hkv):
+    """K3 on K2's split body: positions on and around every split edge, 0
+    and S - 1 (batch rows at different positions), against the plain twin
+    and the plain split-and-merge with the append; the stored rows equal
+    the twin's and no other row changes."""
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(qdt)
+    kc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(cdt)
+    vc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(cdt)
+    k_cur = torch.randn((B, 1, Hkv * D), generator=gen, device="cuda").to(qdt)
+    v_cur = torch.randn((B, 1, Hkv * D), generator=gen, device="cuda").to(qdt)
+    rows, _ = FA.decode_splits(B, Hkv, S)
+    edge = _edge_positions(S, rows)
+    bf16 = qdt == torch.bfloat16
+    for i in range(len(edge)):
+        p = torch.tensor([edge[(i + r) % len(edge)] for r in range(B)], dtype=torch.int32,
+                         device="cuda")
+        k1, v1, k2, v2, k3, v3 = (c.clone() for c in (kc, vc) * 3)
+        launches = FA.flash_decode_fused.launches
+        got, _, _ = FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)
+        assert FA.flash_decode_fused.launches == launches + 1
+        want, _, _ = FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)
+        split, _, _ = FA.flash_decode_fused_split_plain(q, k3, v3, k_cur, v_cur, p)
+        _close(got, want, bf16)
+        _close(got, split, bf16)
+        assert torch.equal(k1, k2) and torch.equal(v1, v2)   # row pos only
+
+
+def test_fused_split_kernel_replays_in_a_graph(gen):
+    """K3 captured in a CUDA graph at bench.py's shape (bf16 (1, 1024, 256)
+    cache, bf16 q) and replayed as the device position moves: each replay
+    equals the eager call there, stores k_cur / v_cur at that row only,
+    and leaves the merge counters at 0."""
+    B, S, H, Hkv, D = 1, 1024, 32, 4, 64
+    bf = torch.bfloat16
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(bf)
+    kc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(bf)
+    vc = torch.randn((B, S, Hkv * D), generator=gen, device="cuda").to(bf)
+    k_cur = torch.randn((B, 1, Hkv * D), generator=gen, device="cuda").to(bf)
+    v_cur = torch.randn((B, 1, Hkv * D), generator=gen, device="cuda").to(bf)
+    k0, v0 = kc.clone(), vc.clone()
+    pos = torch.tensor([7], dtype=torch.int32, device="cuda")
+    FA.flash_decode_fused(q, kc.clone(), vc.clone(), k_cur, v_cur, pos)   # warms up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _, _ = FA.flash_decode_fused(q, kc, vc, k_cur, v_cur, pos)
+    done = []
+    for p in (16, 63, 64, 340, 655, 1023):
+        pos.fill_(p)
+        graph.replay()
+        ke, ve = k0.clone(), v0.clone()
+        for d in done:                       # the rows earlier replays stored
+            ke[:, d], ve[:, d] = k_cur[:, 0], v_cur[:, 0]
+        want, ke, ve = FA.flash_decode_fused(q, ke, ve, k_cur, v_cur,
+                                             torch.tensor([p], dtype=torch.int32,
+                                                          device="cuda"))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), p
+        assert torch.equal(kc, ke) and torch.equal(vc, ve), p
+        done.append(p)
+    assert FA._split_counters[q.device].count_nonzero().item() == 0
+
+
 @pytest.mark.parametrize("D,H,Hkv", [(16, 4, 2), (64, 32, 4), (128, 8, 2)])
 @pytest.mark.parametrize("T,S,offset", [(17, 64, 0), (64, 64, 0), (100, 256, 7),
                                         (130, 200, 70), (1, 5, 4), (95, 129, 34),
@@ -672,3 +738,65 @@ def test_engine_scan_and_spec_card_match_cpu(gen, monkeypatch, weights):
         assert runs["cuda"] == runs["cpu"]
     for dev in runs:
         assert all(r == runs[dev][0] for r in runs[dev]), dev
+
+
+# -- K1's tensor-core body: row tiles, the in-launch K merge, ragged edges ------
+
+TC_KINDS = ["q4_0", "q4_0i4", "q4_1", "q2_kp", "q6_kp", "q8_0", "q6_k"]
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,N", [(32, 1), (32, 33), (32, 130), (32, 32000), (2048, 130),
+                                 (2048, 32000)])
+@pytest.mark.parametrize("planes", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", TC_KINDS)
+def test_qmatmul_tc_rows_and_edges(gen, kind, planes, K, N, xdt):
+    """One launch a call at rows 1, 5, 8, 16 (one m16 tile), 17, 37 and 512
+    (64-row tiles), K one block or split across CTAs and merged in the
+    launch, N ragged (1, 33, 130: plain loads) or 32000; per-32 and per-16
+    nibble, qh and int8 kinds, with mins and without; against the twin and
+    the blocked twin (the kernel's own order), row_scale on the 5-row and
+    512-row calls."""
+    from tpu_llm_torch.quant.qmatmul import qmatmul_blocked_plain
+
+    if kind == "q4_0i4":
+        w = _int4_weight(gen, "q4_0", K, N, planes)
+    else:
+        from chip_smoke import random_qtensor
+        w = random_qtensor(torch, gen, kind, K, N, planes)
+    bf16 = xdt == torch.bfloat16
+    for rows in (1, 5, 8, 16, 17, 37, 512):
+        x = torch.randn((rows, K), generator=gen, device="cuda").to(xdt)
+        rs = (1 + 0.2 * torch.randn(K, generator=gen, device="cuda")) if rows in (5, 512) \
+            else None
+        launches = qmatmul.launches
+        got = qmatmul(x, w, row_scale=rs)
+        assert qmatmul.launches == launches + 1 and got.dtype == xdt
+        _close(got, qmatmul_plain(x, w, row_scale=rs), bf16)
+        _close(got, qmatmul_blocked_plain(x, w, row_scale=rs), bf16)
+        again = qmatmul(x, w, row_scale=rs)        # the tile counters are reset
+        assert torch.equal(again, got)
+
+
+def test_qmatmul_replays_in_a_graph(gen):
+    """K1 with a K split (w13 width, 1 row) captured in a CUDA graph and
+    replayed on new x: equal to the eager call each time, and the tile
+    counters back at 0."""
+    from chip_smoke import random_qtensor
+    from tpu_llm_torch.quant import qmatmul as QM
+
+    w = random_qtensor(torch, gen, "q4_0", 2048, 11264, "bf16")
+    x = torch.randn((1, 2048), generator=gen, device="cuda").bfloat16()
+    assert QM.k_split(1, 2048, 11264, QM._sm_count(x.device))[0] > 1
+    qmatmul(x, w)                                    # builds; makes the counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmatmul(x, w)
+    for _ in range(3):
+        x.copy_(torch.randn((1, 2048), generator=gen, device="cuda"))
+        graph.replay()
+        want = qmatmul(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert QM._tile_counters[x.device].count_nonzero().item() == 0

@@ -209,3 +209,51 @@ def test_decode_split_plain_empty_splits_and_bf16():
     assert got_b.dtype == torch.bfloat16
     err = (got_b.float() - want_b.float()).abs().max().item()
     assert err <= 2e-2 * want_b.float().abs().max().item()
+
+
+# -- K3 on K2's split body ------------------------------------------------------
+
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+@pytest.mark.parametrize("where", ["zero", "edge", "mid", "last"])
+def test_fused_split_plain_matches_pallas(where, cache):
+    """K3's split-and-merge (key pos from k_cur / v_cur in the split that
+    holds it, which also stores them) against the Pallas fused kernel in
+    interpret mode: four splits of 64 rows, pos at 0, on a split edge,
+    mid-split and at S - 1, the second batch row at another position. f32:
+    2e-5 as above. bf16 caches (bf16 q, k_cur / v_cur rounded to the cache
+    dtype on both sides): 2e-2 * max|ref|, the kernels' bf16 tolerance (the
+    split route rounds the unnormalised softmax weights, the reference
+    other intermediates). The stored rows are equal in both dtypes."""
+    rng = np.random.default_rng(300 + len(where))
+    B, S, H, Hkv, D, rows = 2, 256, 8, 2, 64, 64
+    p = {"zero": 0, "edge": 128, "mid": 100, "last": S - 1}[where]
+    positions = np.asarray([[p], [(p + 77) % S]], np.int32)
+    dt, jdt = ((torch.float32, jnp.float32) if cache == "f32"
+               else (torch.bfloat16, jnp.bfloat16))
+    q = _rand(rng, B, 1, H, D)
+    kc, vc = _rand(rng, B, S, Hkv * D), _rand(rng, B, S, Hkv * D)
+    k_cur, v_cur = _rand(rng, B, 1, Hkv * D), _rand(rng, B, 1, Hkv * D)
+    j = [jnp.asarray(a).astype(jdt) for a in (q, kc, vc, k_cur, v_cur)]
+    want, k_new, v_new = jfa.flash_decode_fused(*j, jnp.asarray(positions), chunk=64,
+                                                interpret=True)
+    tk, tv = (_t(a.astype(jnp.float32)).to(dt) for a in j[1:3])
+    tq, tkc, tvc = (_t(a.astype(jnp.float32)).to(dt)
+                    for a in (j[0], j[3], j[4]))
+    got, tk2, tv2 = tfa.flash_decode_fused_split_plain(tq, tk, tv, tkc, tvc,
+                                                       _t(positions), rows)
+    assert tk2 is tk and tv2 is tv and got.dtype == dt
+    want = np.asarray(want.astype(jnp.float32))
+    if cache == "f32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= 2e-2 * np.abs(want).max(), err
+    for new, ref in ((tk, k_new), (tv, v_new)):
+        np.testing.assert_array_equal(new.float().numpy(),
+                                      np.asarray(ref.astype(jnp.float32)))
+    # and the plain twin: same attention, same stored rows
+    tk3, tv3 = (_t(a.astype(jnp.float32)).to(dt) for a in j[1:3])
+    twin, _, _ = tfa.flash_decode_fused_plain(tq, tk3, tv3, tkc, tvc, _t(positions))
+    assert torch.equal(tk3, tk) and torch.equal(tv3, tv)
+    err = (got.float() - twin.float()).abs().max().item()
+    assert err <= (2e-5 if cache == "f32" else 2e-2) * twin.float().abs().max().item()

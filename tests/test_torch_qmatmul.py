@@ -184,3 +184,80 @@ def test_linear_row_scale_matches_jax(weight):
     want = np.asarray(jlinear.matmul(jnp.asarray(x), jw, row_scale=jnp.asarray(rs)))
     got = tlinear.matmul(torch.from_numpy(x), tw, row_scale=torch.from_numpy(rs))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+# -- the kernel's arithmetic: per-k16 sums, scales on the sums, x' in parts ----
+
+EVERY_KIND = ["q4_0", "q4_0i4", "q8_0", *KIND_SOURCES]
+
+
+def _every_kind_pair(monkeypatch, kind, planes, K=256, N=128, seed=12):
+    """Any kind of _KIND_CODE as a JAX QTensor and the port's, f32 or bf16
+    planes; q4_0i4 is to_int4 of q4_0 on each side (bit-equal:
+    tests/test_torch_scan.py)."""
+    if kind in KIND_SOURCES:
+        return _kind_pair(monkeypatch, kind, planes, K, N, seed)
+    w = np.random.default_rng(seed).standard_normal((K, N)).astype(np.float32)
+    jqt = jq.quantize_tensor(w, "q4_0" if kind == "q4_0i4" else kind)
+    tqt = to_torch(jqt)
+    if kind == "q4_0i4":
+        jqt, tqt = jq.to_int4(jqt), tq.to_int4(tqt)
+    if planes == "bf16":
+        jqt, tqt = jq.pack_scales_bf16(jqt), tq.pack_scales_bf16(tqt)
+    assert tqt.kind == kind and tqt.scales.dtype == (
+        torch.bfloat16 if planes == "bf16" else torch.float32)
+    return jqt, tqt
+
+
+@pytest.mark.parametrize("with_rs", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("planes", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", EVERY_KIND)
+def test_blocked_plain_matches_pallas_interpret(monkeypatch, kind, planes, with_rs):
+    """qmatmul_blocked_plain (the kernel's order: integer values, per-k16
+    f32 sums, the scale on each sum, f32 x' as hi + mid + lo bf16 parts)
+    against qmatmul_pallas in interpret mode, rows 1, 5, 8 and 37. f32 x:
+    the f32 tolerance of tests/test_quant.py (rtol 2e-5, atol 2e-4): the
+    three parts hold all of x', so only the order of the f32 sums differs.
+    bf16 x (5 rows): one bf16 rounding of the output on each side, as in
+    test_kinds_plain_matches_pallas_interpret_bf16. And against the plain
+    twin, which dequantizes first: the same f32 tolerance."""
+    jqt, tqt = _every_kind_pair(monkeypatch, kind, planes)
+    jrs, trs = _row_scale(with_rs)
+    for rows in (1, 5, 8, 37):
+        x = np.random.default_rng(100 + rows).standard_normal((rows, 256)).astype(np.float32)
+        want = np.asarray(qmatmul_pallas(jnp.asarray(x), jqt, row_scale=jrs, interpret=True))
+        got = tqm.qmatmul_blocked_plain(torch.from_numpy(x), tqt, row_scale=trs)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+        twin = tqm.qmatmul_plain(torch.from_numpy(x), tqt, row_scale=trs)
+        np.testing.assert_allclose(got.numpy(), twin.numpy(), rtol=2e-5, atol=2e-4)
+    xb = jnp.asarray(np.random.default_rng(5).standard_normal((5, 256)), jnp.bfloat16)
+    want = np.asarray(qmatmul_pallas(xb, jqt, row_scale=jrs, interpret=True)
+                      .astype(jnp.float32))
+    got = tqm.qmatmul_blocked_plain(torch.from_numpy(np.array(xb.astype(jnp.float32)))
+                                    .bfloat16(), tqt, row_scale=trs)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7, atol=2e-4)
+
+
+def test_split3_holds_every_bit_of_f32():
+    """hi + mid + lo, each a bf16 value, sum back to the f32 input exactly
+    (normal values of either sign and magnitude), so the three products a
+    step keep x' unrounded."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
+    x = x * torch.logspace(-20, 20, 4096, dtype=torch.float32)
+    hi, mid, lo = tqm.split3_bf16(x)
+    for p in (hi, mid, lo):
+        assert torch.equal(p, p.bfloat16().float())
+    assert torch.equal(hi + mid + lo, x)
+    assert torch.equal(tqm.split3_bf16(x.bfloat16().float())[1], torch.zeros_like(x))
+
+
+@pytest.mark.parametrize("rows,tile", [(1, 16), (5, 16), (16, 16), (17, 64), (512, 64)])
+def test_row_tiles_round_up(rows, tile):
+    """One m16 tile up to 16 rows (5 rows: one tile, not two), else
+    64-row tiles; k_split reads shapes only and covers K."""
+    assert tqm.row_tile(rows) == tile
+    ks, kbps = tqm.k_split(rows, 2048, 11264, 132)
+    assert (ks - 1) * kbps < 64 <= ks * kbps
+    assert kbps >= min(64, tqm._MIN_BLOCKS_PER_SPLIT)

@@ -5,7 +5,7 @@
 //   decode over a flat (B, S, Hkv*D) cache, keys s <= pos[b];
 // - _decode_fused_kernel (wrapper flash_decode_fused, K3): the same
 //   attention against a STALE cache (s < pos) plus this step's k_cur/v_cur
-//   for s == pos, which it also stores at row pos;
+//   for s == pos, which it also stores at row pos (K2's body, APPEND);
 // - _flash_kernel (wrapper flash_gqa_attention, K4): causal prefill, query
 //   t sees s <= offset + t, kv head h / G.
 //
@@ -42,15 +42,17 @@
 // counter to 0, so the counters (kept by the wrapper, zero-filled once)
 // are 0 again for the next launch or graph replay. One launch a call: at
 // batch 1 a second, merging launch cost as much as the split kernel. With
-// one split the kernel writes the output itself. K3 can take this body:
-// its append is one more key at pos, owned by the split that holds pos.
+// one split the kernel writes the output itself.
 //
-// K3, flash_decode_fused_kernel: one CTA of 256 threads per (b, kv head),
-// holding the G query heads; 64-row tiles converted to f32 in shared
-// memory, rows padded to D + 1 floats; the append is a plain store of row
-// pos by the CTA that owns that kv head, which reads only rows < pos of
-// the stale cache (the TPU kernel's tile-aligned row-group read-modify-
-// write has no counterpart here).
+// K3 runs the same body with APPEND set. What bounds it is what bounds
+// K2: the cache bytes of rows < pos plus the one row it stores, over
+// 3.35 TB/s (its old body, one CTA of 256 threads per (b, kv head) over
+// f32 tiles padded to D + 1, ran 4 CTAs at batch 1 and stayed well
+// under 1% of that). The split that holds pos copies key pos from k_cur / v_cur (in
+// the cache dtype) into its tile in place of the stale row, and stores
+// them at row pos; every other split ends before pos or lies past it and
+// exits, so no CTA reads the row being written. The merge, its counters
+// and the n_split == 1 path are K2's.
 //
 // K4, flash_prefill_kernel (bf16 q): tensor cores. One CTA of 4 warps per
 // (64-query tile, query head, b); each warp owns 16 query rows, its Q
@@ -91,7 +93,15 @@
 namespace {
 
 using tlt::NEG_INF;
+using tlt::cp_async16;
+using tlt::cp_async_commit;
+using tlt::cp_async_wait;
 using tlt::from_f32;
+using tlt::ldsm_x4;
+using tlt::ldsm_x4_t;
+using tlt::mma_bf16;
+using tlt::pack_bf16;
+using tlt::split3_bf16;
 using tlt::round_bf16;
 using tlt::to_f32;
 using tlt::warp_max;
@@ -107,67 +117,6 @@ template <typename K>
 void allow_smem(K kernel, size_t bytes) {
   if (bytes > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// -- cp.async, ldmatrix, mma.sync --------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one bf16x2 word, round to nearest; `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// two f32 as three bf16x2 words, x = hi + mid + lo to f32's 24 bits (each
-// residual is exact in f32)
-__device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& hi, uint32_t& mid,
-                                            uint32_t& lo) {
-  const float ah = round_bf16(a), bh = round_bf16(b);
-  const float ar = a - ah, br = b - bh;
-  const float am = round_bf16(ar), bm = round_bf16(br);
-  hi = pack_bf16(ah, bh);
-  mid = pack_bf16(am, bm);
-  lo = pack_bf16(ar - am, br - bm);
 }
 
 // -- K2: decode split over the sequence ---------------------------------------
@@ -220,10 +169,11 @@ size_t split_smem(int G, int D, int n_split) {
          sizeof(float) * (2 * G * D + G * PKT + 3 * G + 2 * G * n_split + G);
 }
 
-template <typename QT, typename CT, bool ROUND_P, bool SPLIT>
+template <typename QT, typename CT, bool ROUND_P, bool SPLIT, bool APPEND>
 __global__ void __launch_bounds__(kSplitThreads)
-flash_decode_split_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
-                          const CT* __restrict__ vc, const int* __restrict__ pos_arr,
+flash_decode_split_kernel(const QT* __restrict__ q, CT* __restrict__ kc,
+                          CT* __restrict__ vc, const CT* __restrict__ k_cur,
+                          const CT* __restrict__ v_cur, const int* __restrict__ pos_arr,
                           QT* __restrict__ out, float* __restrict__ part_acc,
                           float* __restrict__ part_ml, int* __restrict__ counters, int H,
                           int Hkv, int D, int S, int rows_per_split, float sm_scale) {
@@ -254,10 +204,22 @@ flash_decode_split_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   const int64_t head0 = (int64_t)b * H + (int64_t)h * G;       // first query head
 
   if (n_tiles > 0) {   // a split past pos reads and stores nothing
-    const CT* kb = kc + (int64_t)b * S * HkvD + (int64_t)h * D;
-    const CT* vb = vc + (int64_t)b * S * HkvD + (int64_t)h * D;
+    CT* kb = kc + (int64_t)b * S * HkvD + (int64_t)h * D;
+    CT* vb = vc + (int64_t)b * S * HkvD + (int64_t)h * D;
     constexpr int EPC = 16 / sizeof(CT);     // elements a 16-byte chunk
     const int cpr = D / EPC;                 // chunks a row
+    // K3: key pos is this step's k_cur / v_cur (never the stale row), and
+    // the split that holds pos (the only one whose rows reach it) stores
+    // it at row pos of its kv head; no split reads row pos of the cache
+    const CT* kcur = APPEND ? k_cur + (int64_t)b * HkvD + (int64_t)h * D : nullptr;
+    const CT* vcur = APPEND ? v_cur + (int64_t)b * HkvD + (int64_t)h * D : nullptr;
+    if (APPEND && pos < s_end) {
+      for (int c = tid; c < cpr; c += kSplitThreads) {
+        const int64_t off = (int64_t)pos * HkvD + c * EPC;
+        *reinterpret_cast<uint4*>(kb + off) = *reinterpret_cast<const uint4*>(kcur + c * EPC);
+        *reinterpret_cast<uint4*>(vb + off) = *reinterpret_cast<const uint4*>(vcur + c * EPC);
+      }
+    }
     auto load_tile = [&](int j) {
       const int s0 = s_begin + j * KT;
       CT* ks = kv_s + (j & 1) * 2 * KT * RW;
@@ -266,8 +228,9 @@ flash_decode_split_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
         const int r = c / cpr, col = (c - r * cpr) * EPC;
         const bool ok = s0 + r < s_end;
         const int64_t off = (int64_t)(ok ? s0 + r : s_begin) * HkvD + col;
-        cp_async16(ks + r * RW + col, kb + off, ok);
-        cp_async16(vs + r * RW + col, vb + off, ok);
+        const bool cur = APPEND && s0 + r == pos;
+        cp_async16(ks + r * RW + col, cur ? kcur + col : kb + off, ok);
+        cp_async16(vs + r * RW + col, cur ? vcur + col : vb + off, ok);
       }
     };
     load_tile(0);
@@ -446,148 +409,6 @@ flash_decode_split_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
     o[3] = from_f32<QT>(a.w * inv);
   }
   if (tid == 0) *counter = 0;
-}
-
-// -- K3: fused decode + append ------------------------------------------------
-
-size_t fused_smem(int G, int D) {
-  return sizeof(float) * (2 * G * D + 2 * KT * (D + 1) + G * KT + 3 * G);
-}
-
-template <typename QT, typename CT, bool ROUND_P>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_fused_kernel(const QT* __restrict__ q, CT* __restrict__ kc, CT* __restrict__ vc,
-                          const CT* __restrict__ k_cur, const CT* __restrict__ v_cur,
-                          const int* __restrict__ pos_arr, QT* __restrict__ out,
-                          int H, int Hkv, int D, int S, float sm_scale) {
-  extern __shared__ float smem[];
-  const int G = H / Hkv;
-  const int h = blockIdx.x;            // kv head
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int HkvD = Hkv * D;
-  const int DP = D + 1;
-  float* q_s = smem;                   // G x D
-  float* k_s = q_s + G * D;            // KT x DP
-  float* v_s = k_s + KT * DP;          // KT x DP
-  float* p_s = v_s + KT * DP;          // G x KT
-  float* acc_s = p_s + G * KT;         // G x D
-  float* m_s = acc_s + G * D;          // G
-  float* l_s = m_s + G;                // G
-  float* alpha_s = l_s + G;            // G
-
-  const int pos = min(pos_arr[b], S - 1);
-  const QT* qb = q + ((int64_t)b * H + (int64_t)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = to_f32(qb[i]);
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-
-  CT* kb = kc + (int64_t)b * S * HkvD + (int64_t)h * D;
-  CT* vb = vc + (int64_t)b * S * HkvD + (int64_t)h * D;
-  // the stale cache rows s < pos
-  const int n_keys = pos;
-  for (int s0 = 0; s0 < n_keys; s0 += KT) {
-    const int nk = min(KT, n_keys - s0);
-    for (int i = tid; i < KT * D; i += kThreads) {
-      const int s = i / D, d = i - s * D;
-      float kv = 0.f, vv = 0.f;
-      if (s < nk) {
-        const int64_t off = (int64_t)(s0 + s) * HkvD + d;
-        kv = to_f32(kb[off]);
-        vv = to_f32(vb[off]);
-      }
-      k_s[s * DP + d] = kv;
-      v_s[s * DP + d] = vv;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * KT; i += kThreads) {
-      const int g = i / KT, s = i - g * KT;
-      float sc = NEG_INF;
-      if (s < nk) {
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(q_s[g * D + d], k_s[s * DP + d], dot);
-        sc = dot * sm_scale;
-      }
-      p_s[i] = sc;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = NEG_INF;
-      for (int s = lane; s < KT; s += 32) mx = fmaxf(mx, p_s[g * KT + s]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int s = lane; s < KT; s += 32) {
-        const float p = expf(p_s[g * KT + s] - m_new);
-        sum += p;
-        p_s[g * KT + s] = ROUND_P ? round_bf16(p) : p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        m_s[g] = m_new;
-        l_s[g] = alpha * l_s[g] + sum;
-        alpha_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i - g * D;
-      float a = 0.f;
-      for (int s = 0; s < nk; ++s) a = fmaf(p_s[g * KT + s], v_s[s * DP + d], a);
-      acc_s[i] = acc_s[i] * alpha_s[g] + a;
-    }
-    __syncthreads();
-  }
-
-  // this step's k/v (already in the cache dtype): store row pos of this
-  // kv head, and merge it into the softmax as key s == pos
-  const CT* kcur = k_cur + (int64_t)b * HkvD + (int64_t)h * D;
-  const CT* vcur = v_cur + (int64_t)b * HkvD + (int64_t)h * D;
-  for (int d = tid; d < D; d += kThreads) {
-    const CT kv = kcur[d], vv = vcur[d];
-    kb[(int64_t)pos * HkvD + d] = kv;
-    vb[(int64_t)pos * HkvD + d] = vv;
-    k_s[d] = to_f32(kv);
-    v_s[d] = to_f32(vv);
-  }
-  __syncthreads();
-  for (int g = warp; g < G; g += kWarps) {
-    float dot = 0.f;
-    for (int d = lane; d < D; d += 32) dot = fmaf(q_s[g * D + d], k_s[d], dot);
-    dot = warp_sum(dot);
-    if (lane == 0) {
-      const float sc = dot * sm_scale;
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, sc);
-      const float alpha = expf(m_prev - m_new);
-      const float p = expf(sc - m_new);
-      m_s[g] = m_new;
-      l_s[g] = alpha * l_s[g] + p;
-      alpha_s[g] = alpha;
-      p_s[g] = p;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i - g * D;
-    acc_s[i] = acc_s[i] * alpha_s[g] + p_s[g] * v_s[d];
-  }
-  __syncthreads();
-
-  QT* ob = out + ((int64_t)b * H + (int64_t)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const float l = l_s[i / D];
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-    ob[i] = from_f32<QT>(acc_s[i] * inv);
-  }
 }
 
 // -- K4, bf16 q: causal prefill on tensor cores -------------------------------
@@ -973,46 +794,36 @@ flash_prefill_simt_kernel(const float* __restrict__ q, const CT* __restrict__ kc
 
 // -- launches -----------------------------------------------------------------
 
-template <typename QT, typename CT, bool ROUND_P, bool SPLIT>
-void launch_split_main(const void* q, const void* kc, const void* vc, const int* pos,
-                       void* out, float* part_acc, float* part_ml, int* counters, int B,
-                       int H, int Hkv, int D, int S, int rows_per_split, int n_split,
-                       float sm_scale, cudaStream_t st) {
-  auto kernel = flash_decode_split_kernel<QT, CT, ROUND_P, SPLIT>;
+template <typename QT, typename CT, bool ROUND_P, bool SPLIT, bool APPEND>
+void launch_split_main(const void* q, void* kc, void* vc, const void* k_cur,
+                       const void* v_cur, const int* pos, void* out, float* part_acc,
+                       float* part_ml, int* counters, int B, int H, int Hkv, int D, int S,
+                       int rows_per_split, int n_split, float sm_scale, cudaStream_t st) {
+  auto kernel = flash_decode_split_kernel<QT, CT, ROUND_P, SPLIT, APPEND>;
   const size_t smem = split_smem<CT>(H / Hkv, D, n_split);
   allow_smem(kernel, smem);
   kernel<<<dim3(Hkv, B, n_split), kSplitThreads, smem, st>>>(
-      static_cast<const QT*>(q), static_cast<const CT*>(kc), static_cast<const CT*>(vc), pos,
+      static_cast<const QT*>(q), static_cast<CT*>(kc), static_cast<CT*>(vc),
+      static_cast<const CT*>(k_cur), static_cast<const CT*>(v_cur), pos,
       static_cast<QT*>(out), part_acc, part_ml, counters, H, Hkv, D, S, rows_per_split,
       sm_scale);
 }
 
 template <typename QT, typename CT, bool ROUND_P>
-void launch_split(const void* q, const void* kc, const void* vc, const int* pos, void* out,
-                  float* part_acc, float* part_ml, int* counters, int B, int H, int Hkv,
-                  int D, int S, int rows_per_split, int n_split, float sm_scale,
-                  cudaStream_t st) {
-  if (n_split == 1)
-    launch_split_main<QT, CT, ROUND_P, false>(q, kc, vc, pos, out, part_acc, part_ml,
-                                              counters, B, H, Hkv, D, S, rows_per_split, 1,
-                                              sm_scale, st);
-  else
-    launch_split_main<QT, CT, ROUND_P, true>(q, kc, vc, pos, out, part_acc, part_ml,
-                                             counters, B, H, Hkv, D, S, rows_per_split,
-                                             n_split, sm_scale, st);
-}
-
-template <typename QT, typename CT, bool ROUND_P>
-void launch_fused(const void* q, void* kc, void* vc, const void* k_cur, const void* v_cur,
-                  const int* pos, void* out, int B, int H, int Hkv, int D, int S,
+void launch_split(const void* q, void* kc, void* vc, const void* k_cur, const void* v_cur,
+                  const int* pos, void* out, float* part_acc, float* part_ml, int* counters,
+                  int B, int H, int Hkv, int D, int S, int rows_per_split, int n_split,
                   float sm_scale, cudaStream_t st) {
-  auto kernel = flash_decode_fused_kernel<QT, CT, ROUND_P>;
-  const size_t smem = fused_smem(H / Hkv, D);
-  allow_smem(kernel, smem);
-  kernel<<<dim3(Hkv, B), kThreads, smem, st>>>(
-      static_cast<const QT*>(q), static_cast<CT*>(kc), static_cast<CT*>(vc),
-      static_cast<const CT*>(k_cur), static_cast<const CT*>(v_cur), pos,
-      static_cast<QT*>(out), H, Hkv, D, S, sm_scale);
+#define TLT_SPLIT(SP, AP)                                                                  \
+  launch_split_main<QT, CT, ROUND_P, SP, AP>(q, kc, vc, k_cur, v_cur, pos, out, part_acc, \
+                                             part_ml, counters, B, H, Hkv, D, S,          \
+                                             rows_per_split, n_split, sm_scale, st)
+  const bool append = k_cur != nullptr;
+  if (n_split == 1 && append) TLT_SPLIT(false, true);
+  else if (n_split == 1) TLT_SPLIT(false, false);
+  else if (append) TLT_SPLIT(true, true);
+  else TLT_SPLIT(true, false);
+#undef TLT_SPLIT
 }
 
 template <typename CT, int D>
@@ -1055,13 +866,13 @@ void launch_prefill_simt(const void* q, const void* kc, const void* vc, void* ou
 
 }  // namespace
 
-// K2 (k_cur == v_cur == nullptr) or K3 (both given, in the cache dtype).
-// q (B, 1, H, D); caches (B, S, Hkv*D); pos (B,) int32 on the device;
-// out (B, 1, H, D) in q's dtype. K2 splits the rows into n_split runs of
-// rows_per_split; with n_split > 1 it takes part_acc (B*H, n_split, D) and
-// part_ml (B*H, n_split, 2) f32 scratch and counters, B*Hkv int32 that
-// are 0 on entry and 0 again on exit. K3 ignores the split and stores
-// k_cur/v_cur at row pos.
+// K2 (k_cur == v_cur == nullptr) or K3 (both given, (B, Hkv*D) in the
+// cache dtype). q (B, 1, H, D); caches (B, S, Hkv*D); pos (B,) int32 on
+// the device; out (B, 1, H, D) in q's dtype. The rows split into n_split
+// runs of rows_per_split; with n_split > 1 the launch takes part_acc
+// (B*H, n_split, D) and part_ml (B*H, n_split, 2) f32 scratch and
+// counters, B*Hkv int32 that are 0 on entry and 0 again on exit. K3
+// attends k_cur/v_cur as key pos and stores them at row pos.
 TLT_API int tlt_flash_decode(const void* q, int q_bf16, void* kc, void* vc, int cache_bf16,
                              const void* k_cur, const void* v_cur, const void* pos,
                              void* out, void* part_acc, void* part_ml, void* counters, int B,
@@ -1072,32 +883,18 @@ TLT_API int tlt_flash_decode(const void* q, int q_bf16, void* kc, void* vc, int 
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int* cn = static_cast<int*>(counters);
-  if (k_cur != nullptr) {
-#define TLT_K3(QT, CT, RP) \
-  launch_fused<QT, CT, RP>(q, kc, vc, k_cur, v_cur, p, out, B, H, Hkv, D, S, sm_scale, st)
-    if (q_bf16 && cache_bf16)
-      TLT_K3(bf16, bf16, true);
-    else if (q_bf16)
-      TLT_K3(bf16, float, false);
-    else if (cache_bf16)
-      TLT_K3(float, bf16, false);
-    else
-      TLT_K3(float, float, false);
-#undef TLT_K3
-  } else {
-#define TLT_K2(QT, CT, RP) \
-  launch_split<QT, CT, RP>(q, kc, vc, p, out, pa, pm, cn, B, H, Hkv, D, S, rows_per_split, \
-                           n_split, sm_scale, st)
-    if (q_bf16 && cache_bf16)
-      TLT_K2(bf16, bf16, true);
-    else if (q_bf16)
-      TLT_K2(bf16, float, false);
-    else if (cache_bf16)
-      TLT_K2(float, bf16, false);
-    else
-      TLT_K2(float, float, false);
-#undef TLT_K2
-  }
+#define TLT_DEC(QT, CT, RP)                                                              \
+  launch_split<QT, CT, RP>(q, kc, vc, k_cur, v_cur, p, out, pa, pm, cn, B, H, Hkv, D, S, \
+                           rows_per_split, n_split, sm_scale, st)
+  if (q_bf16 && cache_bf16)
+    TLT_DEC(bf16, bf16, true);
+  else if (q_bf16)
+    TLT_DEC(bf16, float, false);
+  else if (cache_bf16)
+    TLT_DEC(float, bf16, false);
+  else
+    TLT_DEC(float, float, false);
+#undef TLT_DEC
   return (int)cudaGetLastError();
 }
 

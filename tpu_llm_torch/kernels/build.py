@@ -40,9 +40,10 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (all return int = cudaError_t)
 SIGNATURES = {
     # x, x_bf16, row_scale, q, qh, scales, mins, s_dtype, pack, voff, block,
-    # out, out_bf16, partial, rows, K, N, ksplit, kb_per_split, stream
+    # out, out_bf16, partial, counters, rows, K, N, ksplit, kb_per_split,
+    # vec, stream
     "tlt_qmatmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _P, _I, _P, _I, _I, _I, _I, _I, _P],
+                    _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, q_bf16, k_cache, v_cache, cache_bf16, k_cur, v_cur, pos, out,
     # part_acc, part_ml, counters, B, H, Hkv, D, S, rows_per_split, n_split,
     # sm_scale, stream

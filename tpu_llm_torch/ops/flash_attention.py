@@ -13,7 +13,8 @@ Three kernels, each replacing a Pallas kernel of
 - ``flash_decode_fused`` (K3, ``_decode_fused_kernel``): the same
   attention against the STALE cache (s < pos) plus this step's
   k_cur/v_cur as key pos, and the store of k_cur/v_cur at row pos — in
-  place, where the JAX kernel returns aliased planes.
+  place, where the JAX kernel returns aliased planes. K2's split launch,
+  the append owned by the split that holds pos.
   ``decode_step(defer_kv=True)`` runs it.
 - ``flash_gqa_attention`` (K4, ``_flash_kernel``): causal prefill, query t
   sees s <= offset + t, on tensor cores for bf16 q. Prefill takes it when
@@ -103,7 +104,7 @@ SPLIT_TARGET_CTAS = 264
 SPLIT_TILE = 64          # keys per tile of the split decode kernels
 
 
-# K2's merge counters: one int32 per (b, kv head), a buffer per device,
+# K2's and K3's merge counters: one int32 per (b, kv head), a buffer per device,
 # zero-filled once. Each launch leaves them at 0 again (the last split of a
 # (b, kv head) resets its counter), so launches on one stream and CUDA
 # graph replays share them.
@@ -118,8 +119,8 @@ def _merge_counters(device, n: int) -> torch.Tensor:
     counters = _split_counters.get(device)
     if counters is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("flash_decode_attention makes its merge counters at "
-                               "its first call: call it once before a graph capture")
+            raise RuntimeError("the split decode kernels make their merge counters "
+                               "at their first call: call one before a graph capture")
         counters = torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device)
         _split_counters[device] = counters
     return counters
@@ -196,13 +197,23 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if _on_cpu(q, k_cache, v_cache):
         return flash_decode_attention_plain(q, k_cache, v_cache, positions)
     _check_kernel_args(q, k_cache, v_cache)
-    _check_aligned("flash_decode_attention", k_cache, v_cache)
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError(f"decode attention takes one query a row, got T={T}")
     S = k_cache.shape[1]
-    kc = k_cache.reshape(B, S, -1)
-    vc = v_cache.reshape(B, S, -1)
+    out = _split_decode_launch("flash_decode_attention", q, k_cache.reshape(B, S, -1),
+                               v_cache.reshape(B, S, -1), None, None, positions)
+    flash_decode_attention.launches += 1
+    return out
+
+
+def _split_decode_launch(name, q, kc, vc, kcur, vcur, positions):
+    """One launch of the split decode body over flat (B, S, Hkv*D) caches:
+    K2, or K3 with ``kcur`` / ``vcur`` ((B, Hkv*D) in the cache dtype)
+    attended as key pos and stored at row pos."""
+    B, _, H, D = q.shape
+    _check_aligned(name, kc, vc, *(t for t in (kcur, vcur) if t is not None))
+    S = kc.shape[1]
     Hkv = kc.shape[2] // D
     rows, n_split = decode_splits(B, Hkv, S)
     q = q.contiguous()
@@ -214,12 +225,12 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32, device=q.device)
         scratch = (part_acc.data_ptr(), part_ml.data_ptr(),
                    _merge_counters(q.device, B * Hkv).data_ptr())
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     code = build.lib().tlt_flash_decode(
         q.data_ptr(), _is_bf16(q), kc.data_ptr(), vc.data_ptr(), _is_bf16(kc),
-        None, None, pos.data_ptr(), out.data_ptr(), *scratch, B, H, Hkv, D, S, rows,
-        n_split, 1.0 / D ** 0.5, build.stream_ptr(q.device))
-    build.check(code, "flash_decode_attention")
-    flash_decode_attention.launches += 1
+        ptr(kcur), ptr(vcur), pos.data_ptr(), out.data_ptr(), *scratch, B, H, Hkv, D, S,
+        rows, n_split, 1.0 / D ** 0.5, build.stream_ptr(q.device))
+    build.check(code, name)
     return out
 
 
@@ -242,6 +253,22 @@ def flash_decode_fused_plain(q, k_cache, v_cache, k_cur, v_cur, positions):
     return attn, k_cache, v_cache
 
 
+def flash_decode_fused_split_plain(q, k_cache, v_cache, k_cur, v_cur, positions,
+                                   rows_per_split=None):
+    """K3's split-and-merge in plain PyTorch (for the tests): K2's
+    (``flash_decode_attention_split_plain``) over the cache with key pos
+    taken from k_cur / v_cur (cast to the cache dtype), as the split that
+    holds pos reads it; that split also stores them at row pos, in place.
+    Returns (attn, k_cache, v_cache)."""
+    B, S = q.shape[0], k_cache.shape[1]
+    pos = _row_positions(positions, B, q.device).clamp(max=S - 1).long()
+    rows = torch.arange(B, device=q.device)
+    for cache, cur in ((k_cache, k_cur), (v_cache, v_cur)):
+        cache[rows, pos] = cur.to(cache.dtype).reshape(B, -1)
+    attn = flash_decode_attention_split_plain(q, k_cache, v_cache, pos, rows_per_split)
+    return attn, k_cache, v_cache
+
+
 def flash_decode_fused(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, k_cur: torch.Tensor,
                        v_cur: torch.Tensor, positions: torch.Tensor):
@@ -249,7 +276,10 @@ def flash_decode_fused(q: torch.Tensor, k_cache: torch.Tensor,
     this step's k_cur/v_cur (B, 1, Hkv*D), which are stored at row pos IN
     PLACE. k_cur/v_cur are cast to the cache dtype first, so a bf16 cache
     rounds the current token before it enters the softmax. Returns
-    (attn (B, 1, H, D), k_cache, v_cache)."""
+    (attn (B, 1, H, D), k_cache, v_cache). On the card it is K2's split
+    launch (``decode_splits``, the same merge counters) with the append
+    owned by the split that holds pos: make the first call outside a
+    graph capture."""
     if _on_cpu(q, k_cache, v_cache, k_cur, v_cur):
         return flash_decode_fused_plain(q, k_cache, v_cache, k_cur, v_cur,
                                         positions)
@@ -257,18 +287,11 @@ def flash_decode_fused(q: torch.Tensor, k_cache: torch.Tensor,
     B, T, H, D = q.shape
     if T != 1 or k_cache.dim() != 3:
         raise ValueError("fused decode takes one query a row and flat caches")
-    S, HkvD = k_cache.shape[1], k_cache.shape[2]
-    q = q.contiguous()
+    HkvD = k_cache.shape[2]
     kcur = k_cur.to(k_cache.dtype).reshape(B, HkvD).contiguous()
     vcur = v_cur.to(v_cache.dtype).reshape(B, HkvD).contiguous()
-    pos = _row_positions(positions, B, q.device)
-    out = torch.empty_like(q)
-    code = build.lib().tlt_flash_decode(
-        q.data_ptr(), _is_bf16(q), k_cache.data_ptr(), v_cache.data_ptr(),
-        _is_bf16(k_cache), kcur.data_ptr(), vcur.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), None, None, None, B, H, HkvD // D, D, S, S, 1, 1.0 / D ** 0.5,
-        build.stream_ptr(q.device))
-    build.check(code, "flash_decode_fused")
+    out = _split_decode_launch("flash_decode_fused", q, k_cache, v_cache, kcur, vcur,
+                               positions)
     flash_decode_fused.launches += 1
     return out, k_cache, v_cache
 

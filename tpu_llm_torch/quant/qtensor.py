@@ -413,10 +413,10 @@ def _check_plane_dtype(qt: QTensor):
         raise ValueError(f"QTensor kind {qt.kind} with {qt.scales.dtype} scales")
 
 
-def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
-    """Materialize the logical (..., K, N) weight: values times the scale
-    of their block (K // scales rows), plus the block's min for the
-    affine kinds; computed in ``dtype``."""
+def qvalues(qt: QTensor):
+    """(values (..., K, N) int, affine): the unpacked integer value of every
+    weight before its scale, and whether the mins plane holds affine mins
+    (q6_kp's holds its qh bits, which ``values`` already include)."""
     _check_plane_dtype(qt)
     affine = qt.mins is not None
     if qt.kind in ("q4_0", "q4_0i4"):
@@ -435,6 +435,14 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         affine = False                             # the mins slot is qh
     else:
         vals = qt.q
+    return vals, affine
+
+
+def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
+    """Materialize the logical (..., K, N) weight: values times the scale
+    of their block (K // scales rows), plus the block's min for the
+    affine kinds; computed in ``dtype``."""
+    vals, affine = qvalues(qt)
     vals = vals.to(dtype)
     rep = vals.shape[-2] // qt.scales.shape[-2]
     out = vals * torch.repeat_interleave(unpack_scales_f16(qt.scales, dtype), rep, dim=-2)
