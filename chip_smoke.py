@@ -20,10 +20,13 @@ Phases, one JSON line each:
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type, whichever is larger).
    The paged decode kernels (K5, K6) run at serving shapes (batch 8, 32/4
-   heads, 1024-row tables, shuffled blocks, positions 15-1023), and again
-   with every block past pos // BS and block 0 poisoned (NaN): the output
-   must not change. K2 (split over the sequence) and K4 (tensor cores for
-   bf16 q) run at the shapes the `llm` CLI gives them (bf16 q over its f32
+   heads, 1024-row tables, shuffled blocks, positions 15-1023) and at
+   batch 1 (one live request at position 1000), and again with every
+   block past pos // BS and block 0 poisoned (NaN): the output must not
+   change; each case reports its split count and the kernels one call
+   launches (the profiler's count; more than one fails). K2 (split over
+   the sequence) and K4 (tensor cores for bf16 q) run at the shapes the
+   `llm` CLI gives them (bf16 q over its f32
    2048-row cache: K2 at positions 15, 1000, 2047; K4 at T 512, offset
    0), and again at the shapes serving gives them (bf16 q over bf16
    planes: K2 at batch 8 with positions 15-1023, K4 over one slot's
@@ -68,8 +71,10 @@ Phases, one JSON line each:
    batch 8, max_seq 1024, 16 requests (8 sharing a 256-token prefix with
    32-200-token tails, 8 distinct prompts of 64-512 tokens), 128 greedy
    tokens each; throughput, TTFT, prefix hits, blocks in use, launches and
-   the device-busy share of 16 profiled engine steps; one batched decode
-   step's logits held against the plain path.
+   the device-busy share of 16 profiled engine steps, with the device ms
+   and launches a step of K5 / K6 (`paged_decode`) and of every attention
+   kernel (`attention`); one batched decode step's logits held against
+   the plain path.
 7. megakernel — the phase-5 model with TPU_LLM_FFN_MEGAKERNEL set:
    Engine.generate (16 + 128), one decode step's launches (22 ffn_fused),
    a decode step's logits and the dense BatchEngine's batch-8 decode
@@ -107,6 +112,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -557,16 +563,19 @@ def int4pack_ms(torch, timer, x, w, want, info):
 
 
 PAGED_POS = [15, 100, 257, 511, 700, 900, 1000, 1023]
+PAGED_BATCH1_POS = [1000]      # one live request
 
 
 def check_paged_kernels(torch, timer, g, compare, record, cases):
     """K5 (bf16 and f32 pools, block 16) and K6 (int8 pools, block 32)
     against their plain twins at serving shapes: batch 8, 32/4 heads,
-    head_dim 64, max_seq 1024, shuffled tables, positions PAGED_POS. Then
-    block 0 and every block past pos // BS poisoned: the same output.
-    Library: F.scaled_dot_product_attention over the rows gathered (and,
-    for int8, dequantized) beforehand, masked to s <= pos; the gather is
-    not timed."""
+    head_dim 64, max_seq 1024, shuffled tables, positions PAGED_POS; and
+    batch 1, one live request at position 1000. Then block 0 and every
+    block past pos // BS poisoned: the same output. Each case reports its
+    split count and the kernels the profiler sees a call launch (one: the
+    split decode body merges in the same launch). Library:
+    F.scaled_dot_product_attention over the rows gathered (and, for int8,
+    dequantized) beforehand, masked to s <= pos; the gather is not timed."""
     from tpu_llm_torch.ops import flash_attention as FA
     from tpu_llm_torch.ops.kv_cache import dequantize_kv
     from tpu_llm_torch.ops.paged_kv import (PagedKV, paged_gather, scale_pool_width,
@@ -574,16 +583,17 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
 
     F = torch.nn.functional
     dev = "cuda"
-    B, H, Hkv, D, max_seq = 8, 32, 4, 64, 1024
-    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=dev)
-    q_bf = torch.randn((B, 1, H, D), generator=g, device=dev).bfloat16()
+    H, Hkv, D, max_seq = 32, 4, 64, 1024
     cases["paged_flash_decode_attention"] = []
     cases["paged_flash_decode_q"] = []
-    for name, pool, BS in (("paged_flash_decode_attention", "bf16", 16),
-                           ("paged_flash_decode_attention", "f32", 16),
-                           ("paged_flash_decode_q", "int8", 32)):
+    for (name, pool, BS), positions in itertools.product(
+            (("paged_flash_decode_attention", "bf16", 16),
+             ("paged_flash_decode_attention", "f32", 16),
+             ("paged_flash_decode_q", "int8", 32)), (PAGED_POS, PAGED_BATCH1_POS)):
+        B = len(positions)
         MB = max_seq // BS
         N = 1 + B * MB
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
         table = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(BS)) + 1)
         table = table.reshape(B, MB).to(device=dev, dtype=torch.int32)
         if pool == "int8":
@@ -598,19 +608,26 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
             kp, vp = (torch.randn((N, BS, Hkv * D), generator=g, device=dev).to(dt)
                       for _ in range(2))
             scales = ()
-        q = q_bf if pool != "f32" else q_bf.float()
+        q = torch.randn((B, 1, H, D), generator=g, device=dev).bfloat16()
+        if pool == "f32":
+            q = q.float()
         kernel = getattr(FA, name)
         plain = getattr(FA, name + "_plain")
         args = (q, kp, vp, *scales, table, pos)
+        n_split = FA.decode_splits(B, Hkv, MB * BS)[1]
         info = dict(B=B, H=H, Hkv=Hkv, D=D, BS=BS, MB=MB, pool=pool,
-                    q=str(q.dtype).replace("torch.", ""), positions=PAGED_POS)
+                    q=str(q.dtype).replace("torch.", ""), positions=positions,
+                    n_split=n_split)
         got = kernel(*args)
         err, tol = compare(name, got, plain(*args), pool != "f32", **info)
+        per_call = launches_per_call(torch, lambda: kernel(*args))
+        if per_call != "not measured" and per_call != 1:
+            fail(f"{name} {info}: one call launched {per_call} kernels, not 1")
 
         # poison block 0 and every block no row reads (past pos // BS)
         live = set()
         for b in range(B):
-            live.update(table[b, :PAGED_POS[b] // BS + 1].tolist())
+            live.update(table[b, :positions[b] // BS + 1].tolist())
         dead = torch.tensor([i for i in range(N) if i not in live], device=dev)
         nan = float("nan")
         if pool == "int8":
@@ -633,16 +650,36 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
         k4, v4 = (a.reshape(B, S, Hkv, D).transpose(1, 2).contiguous() for a in (kg, vg))
         qs = q.transpose(1, 2).to(k4.dtype)
         mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
-        rows_read = sum(p + 1 for p in PAGED_POS)
+        rows_read = sum(p + 1 for p in positions)
         it = kp.element_size()
         moved = (nbytes(q) * 2 + 2 * rows_read * Hkv * D * it
-                 + sum(4 * (p // BS + 1) for p in PAGED_POS)             # table entries
+                 + sum(4 * (p // BS + 1) for p in positions)             # table entries
                  + (2 * rows_read * Hkv * 4 if pool == "int8" else 0))   # scales
-        record(name, dict(info, library="sdpa over pre-gathered rows (gather not timed)"),
+        record(name, dict(info, launches_per_call=per_call,
+                          library="sdpa over pre-gathered rows (gather not timed)"),
                err, tol, timer.ms(lambda: kernel(*args)), timer.ms(lambda: plain(*args)),
                timer.ms(lambda: F.scaled_dot_product_attention(
                    qs, k4, v4, attn_mask=mask, enable_gqa=True)),
                moved, 4.0 * H * D * rows_read, "f32")
+
+
+def launches_per_call(torch, fn, calls: int = 4, tries: int = 3):
+    """Kernels on the card a call of ``fn`` launches (torch.profiler, mean
+    over ``calls``), or "not measured" where the profiler's device trace
+    comes back empty ``tries`` times (it now and then does)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n / calls
+    return "not measured"
 
 
 # -- phase 3: the CLI on a tiny GGUF ---------------------------------------------
@@ -896,12 +933,14 @@ def decode_logits_fn(torch, params, cfg, ids, max_seq: int):
     return fn
 
 
-def profile_busy(torch, run, steps: int):
+def profile_busy(torch, run, steps: int, groups=None):
     """torch.profiler around ``run()`` (``steps`` steps, ending
     synchronized): device busy time (sum of kernel times on the one
     stream) over wall time, and the kernels that take the most of it. The
     profiler slows the host, so the busy share is a lower bound on the
-    unprofiled one."""
+    unprofiled one. ``groups``: label -> name fragments; each label gets
+    the device ms and the launches a step of the kernels whose names hold
+    one of its fragments."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -922,11 +961,16 @@ def profile_busy(torch, run, steps: int):
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         return dict(device_busy_share="not measured", steps=steps)
-    return dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
-                device_ms_per_step=busy_us / steps / 1e3,
-                device_busy_share=busy_us / wall_us,
-                top=[dict(kernel=k[:80], ms_per_step=us / steps / 1e3,
-                          calls_per_step=c / steps) for us, k, c in rows[:10]])
+    out = dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
+               device_ms_per_step=busy_us / steps / 1e3,
+               device_busy_share=busy_us / wall_us,
+               top=[dict(kernel=k[:80], ms_per_step=us / steps / 1e3,
+                         calls_per_step=c / steps) for us, k, c in rows[:10]])
+    for label, frags in (groups or {}).items():
+        hit = [(us, c) for us, k, c in rows if any(f in k for f in frags)]
+        out[label] = dict(ms_per_step=sum(us for us, _ in hit) / steps / 1e3,
+                          launches_per_step=sum(c for _, c in hit) / steps)
+    return out
 
 
 def profile_decode(torch, params, cfg, max_seq: int, steps: int):
@@ -1200,6 +1244,12 @@ def decode_logits_vs_plain(torch, eng, params, cfg, requests, label):
         fail(f"batched decode logits differ from the plain path: {row}")
 
 
+# the kernels serve_full_width reports apart in a profiled step: K5 / K6
+# (the split decode body over paged rows), and every attention kernel
+SERVE_KERNEL_GROUPS = {"paged_decode": ("PagedRows",),
+                       "attention": ("flash_decode_split_kernel", "flash_prefill")}
+
+
 def serve_full_width(torch, params, cfg):
     from tpu_llm_torch.runtime.batching import Request
 
@@ -1253,7 +1303,8 @@ def serve_full_width(torch, params, cfg):
             eng.step()
         torch.cuda.synchronize()
         reset_counts()
-        prof = profile_busy(torch, lambda: [eng.step() for _ in range(16)], 16)
+        prof = profile_busy(torch, lambda: [eng.step() for _ in range(16)], 16,
+                            groups=SERVE_KERNEL_GROUPS)
         row["launches_per_step"] = {k: v / 16 for k, v in read_counts().items()}
         row["profile"] = prof
         emit("serve_full_width", **row)
@@ -1647,7 +1698,12 @@ CLI_CASES = {"flash_decode_attention": dict(cache="f32", pos=1000),
 # further cases reported beside the pick: K4's f32-q body, K1 at prefill rows
 EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q="f32")},
                "qmatmul": {"prefill_case": dict(weight="w13", kind="q4_0", rows=512),
-                           "verify_window_case": dict(weight="w13", kind="q4_0", rows=5)}}
+                           "verify_window_case": dict(weight="w13", kind="q4_0", rows=5)},
+               "paged_flash_decode_attention": {"batch1_case": dict(pool="bf16", B=1)},
+               "paged_flash_decode_q": {"batch1_case": dict(pool="int8", B=1)}}
+
+# what the paged cases report of their launch: splits, kernels a call
+SPLIT_KEYS = ("n_split", "launches_per_call")
 
 KERNELS = [
     ("qmatmul", "tpu_llm_torch/csrc/qmatmul.cu", "tpu_llm/quant/pallas_matmul.py:59",
@@ -1659,9 +1715,9 @@ KERNELS = [
     ("flash_gqa_attention", "tpu_llm_torch/csrc/flash_attention.cu",
      "tpu_llm/ops/flash_attention.py:51", dict(T=512, cache="bf16")),
     ("paged_flash_decode_attention", "tpu_llm_torch/csrc/paged_attention.cu",
-     "tpu_llm/ops/flash_attention.py:264", dict(pool="bf16")),
+     "tpu_llm/ops/flash_attention.py:264", dict(pool="bf16", B=8)),
     ("paged_flash_decode_q", "tpu_llm_torch/csrc/paged_attention.cu",
-     "tpu_llm/ops/flash_attention.py:439", dict(pool="int8")),
+     "tpu_llm/ops/flash_attention.py:439", dict(pool="int8", B=8)),
     ("ffn_fused", "tpu_llm_torch/csrc/ffn.cu", "tpu_llm/quant/pallas_ffn.py:49",
      dict(kind="q4_0", rows=1)),
 ]
@@ -1734,6 +1790,7 @@ def main() -> int:
                 for c in cases[name] if c["weight"] == "w13" and c["rows"] == 1}
         if name == "ffn_fused":
             out[-1]["unfused_ms"] = rep["unfused_ms"]
+        out[-1].update({k: rep[k] for k in SPLIT_KEYS if k in rep})
         extra = dict(EXTRA_CASES.get(name, {}))
         if name in CLI_CASES:
             extra["cli_case"] = CLI_CASES[name]
@@ -1741,7 +1798,7 @@ def main() -> int:
             c = case(name, pick_x)
             out[-1][key] = dict(
                 {k: c[k] for k in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by")},
+                                   "bound_by", *SPLIT_KEYS) if k in c},
                 ms=c["kernel_ms"], case=pick_x)
     print(smi_line)
     print(json.dumps({"kernels": out}))

@@ -371,6 +371,167 @@ def test_paged_decode_q_kernel_matches_plain(gen, BS, D, H, Hkv, qdt):
     assert torch.equal(again, got)
 
 
+# -- K5 / K6 on the split decode body ----------------------------------------
+
+def _paged_split_edges(S, rows, BS):
+    """0, S - 1, every block edge (e - 1, e) and every split edge (e - 1,
+    e, e + 1)."""
+    pos = {0, S - 1}
+    for e in range(BS, S, BS):
+        pos |= {e - 1, e}
+    for e in range(rows, S, rows):
+        pos |= {e - 1, e, e + 1}
+    return sorted(p for p in pos if 0 <= p < S)
+
+
+def _split_pools(gen, pool, N, BS, Hkv, D):
+    """k, v pools and (int8) their (N*HP, SP) scale pools."""
+    if pool == "int8":
+        from tpu_llm_torch.ops.paged_kv import scale_pool_width, scale_rows_per_block
+
+        kp, vp = (torch.randint(-127, 128, (N, BS, Hkv * D), generator=gen, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(2))
+        shape = (N * scale_rows_per_block(Hkv), scale_pool_width(BS))
+        return kp, vp, tuple(torch.rand(shape, generator=gen, device="cuda") * 0.09 + 0.01
+                             for _ in range(2))
+    dt = torch.bfloat16 if pool == "bf16" else torch.float32
+    kp, vp = (torch.randn((N, BS, Hkv * D), generator=gen, device="cuda").to(dt)
+              for _ in range(2))
+    return kp, vp, ()
+
+
+def _paged_call(pool):
+    if pool == "int8":
+        return FA.paged_flash_decode_q, FA.paged_flash_decode_q_plain
+    return FA.paged_flash_decode_attention, FA.paged_flash_decode_attention_plain
+
+
+def _table_to_pos(full, pos, BS, N):
+    """The table with every entry past pos // BS at the null block 0, and
+    the blocks no row reads at or below its pos // BS (block 0 among them)."""
+    live_entries = (torch.arange(full.shape[1], device="cuda")[None, :]
+                    <= (pos.long() // BS)[:, None])
+    table = torch.where(live_entries, full, torch.zeros_like(full)).contiguous()
+    live = torch.zeros(N, dtype=torch.bool, device="cuda")
+    live[table[live_entries].long()] = True
+    live[0] = False
+    return table, ~live
+
+
+def _poison_dead(pool, kp, vp, scales, dead):
+    if pool == "int8":
+        hp = scales[0].shape[0] // kp.shape[0]
+        rows = dead.repeat_interleave(hp)[:, None]
+        nan = float("nan")
+        return (kp.masked_fill(dead[:, None, None], -128),
+                vp.masked_fill(dead[:, None, None], -128),
+                scales[0].masked_fill(rows, nan), scales[1].masked_fill(rows, nan))
+    return tuple(p.masked_fill(dead[:, None, None], float("nan")) for p in (kp, vp))
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16], ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("BS", [8, 16, 32, 64])
+@pytest.mark.parametrize("D,H,Hkv", [(64, 12, 4), (128, 8, 2), (64, 32, 4), (128, 32, 2)])
+def test_paged_split_kernel_matches_plain(gen, pool, qdt, BS, D, H, Hkv):
+    """K5 / K6 on the split decode body, batch 8 over serving's 1024-row
+    tables (shuffled blocks, row 1 sharing row 0's first block): each run
+    gives the rows ragged positions, and the runs together cover 0, the
+    last row, every block edge and every split edge (e - 1, e, e + 1).
+    One launch a call, against the twin and the plain split-and-merge.
+    Table entries past pos // BS point at the null block, and block 0 and
+    every block no row reads are poisoned (NaN; int8: -128 with NaN
+    scales): the output is bit-identical."""
+    B, S = 8, 1024
+    MB = S // BS
+    N = 1 + B * MB
+    ids = torch.randperm(N - 1, generator=torch.Generator().manual_seed(BS)) + 1
+    full = ids.reshape(B, MB).to(torch.int32).cuda()
+    full[1, 0] = full[0, 0]
+    kp, vp, scales = _split_pools(gen, pool, N, BS, Hkv, D)
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(qdt)
+    kernel, twin = _paged_call(pool)
+    rows, n_split = FA.decode_splits(B, Hkv, S)
+    assert n_split > 1
+    edge = _paged_split_edges(S, rows, BS)
+    n_runs = -(-len(edge) // B)
+    bf16 = pool != "f32" or qdt == torch.bfloat16
+    for i in range(n_runs):
+        pos = torch.tensor([edge[(i + r * n_runs) % len(edge)] for r in range(B)],
+                           dtype=torch.int32, device="cuda")
+        table, dead = _table_to_pos(full, pos, BS, N)
+        launches = kernel.launches
+        got = kernel(q, kp, vp, *scales, table, pos)
+        assert kernel.launches == launches + 1
+        _close(got, twin(q, kp, vp, *scales, table, pos), bf16)
+        _close(got, FA.paged_flash_decode_split_plain(q, kp, vp, table, pos, *scales), bf16)
+        again = kernel(q, *_poison_dead(pool, kp, vp, scales, dead), table, pos)
+        assert torch.equal(again, got), pos.tolist()
+    assert FA._split_counters[q.device].count_nonzero().item() == 0
+
+
+@pytest.mark.parametrize("pool,BS", [("bf16", 16), ("int8", 32), ("f32", 8)])
+def test_paged_split_kernel_replays_in_a_graph(gen, pool, BS):
+    """K5 / K6 captured in a CUDA graph at serving's shape (batch 8, 32/4
+    heads, 1024-row tables), the positions and the table in device
+    tensors, replayed at three sets of positions: each replay equals the
+    eager call there, and the merge counters are back at 0."""
+    B, H, Hkv, D, S = 8, 32, 4, 64, 1024
+    MB = S // BS
+    N = 1 + B * MB
+    kp, vp, scales = _split_pools(gen, pool, N, BS, Hkv, D)
+    table = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(3)) + 1)
+    table = table.reshape(B, MB).to(torch.int32).cuda()
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").bfloat16()
+    kernel, _ = _paged_call(pool)
+    pos = torch.full((B,), 7, dtype=torch.int32, device="cuda")
+    kernel(q, kp, vp, *scales, table, pos)                 # builds and warms up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(q, kp, vp, *scales, table, pos)
+    for ps in ([0, 15, 16, 127, 128, 129, 700, 1023], [1023] * 8,
+               [5, 300, 64, 1000, 0, 511, 512, 255]):
+        pos.copy_(torch.tensor(ps, dtype=torch.int32))
+        graph.replay()
+        want = kernel(q, kp, vp, *scales, table,
+                      torch.tensor(ps, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), ps
+    assert FA._split_counters[q.device].count_nonzero().item() == 0
+
+
+@pytest.mark.parametrize("B", [8, 1])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_paged_split_kernel_is_one_launch(gen, pool, B):
+    """The profiler sees one kernel on the card for one K5 / K6 call, the
+    split decode body over the paged rows (batch 8: 8 splits; batch 1: 16
+    splits, merged in the same launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    H, Hkv, D, BS, S = 32, 4, 64, 16, 1024
+    MB = S // BS
+    N = 1 + B * MB
+    kp, vp, scales = _split_pools(gen, pool, N, BS, Hkv, D)
+    table = torch.arange(1, N, dtype=torch.int32, device="cuda").reshape(B, MB)
+    pos = torch.full((B,), 1000, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").bfloat16()
+    kernel, _ = _paged_call(pool)
+    assert FA.decode_splits(B, Hkv, S)[1] > 1
+    kernel(q, kp, vp, *scales, table, pos)
+    torch.cuda.synchronize()
+    for _ in range(3):   # the profiler's device trace comes back empty now and then
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kernel(q, kp, vp, *scales, table, pos)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 1, names
+    assert "flash_decode_split_kernel" in names[0] and "PagedRows" in names[0], names
+
+
 def test_paged_kernels_refuse_bad_arguments(gen):
     q = torch.zeros((2, 1, 8, 64), device="cuda")
     pool = torch.zeros((5, 16, 128), device="cuda")

@@ -3,6 +3,8 @@ quantization and the plain twins of the paged decode kernels, against
 tpu_llm.ops.paged_kv / kv_cache and the Pallas kernels in interpret mode,
 on the CPU. Inputs are made with numpy from a seed and handed to both."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -275,6 +277,72 @@ def test_paged_decode_q_twin_matches_pallas(positions):
     got = FA.paged_flash_decode_q(torch.from_numpy(q), tk.k_pool, tk.v_pool, tk.k_scale,
                                   tk.v_scale, tk.block_table, torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3, atol=5e-3)
+
+
+# The split-and-merge of the paged split launch (K5 / K6 on the split decode
+# body): 128 logical rows a batch row, positions 0, BS - 1, BS, the edge of
+# split 3 of 7 (57) and the row after it, the edge of split 1 of 2 (64) and
+# the row after it, and the last row. One Pallas run per pool and block
+# size serves every split count.
+SPLIT_ROWS = 128
+
+
+def _split_positions(bs):
+    return [0, bs - 1, bs, 57, 58, 64, 65, SPLIT_ROWS - 1]
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_split_case(pool, bs):
+    """Inputs made with numpy from a seed and the Pallas kernel's output
+    in interpret mode (K5 for f32/bf16 pools, K6 for int8)."""
+    B, H, Hkv, D = 8, 8, 2, 64
+    mb = SPLIT_ROWS // bs
+    N = 1 + B * mb
+    rng = np.random.default_rng(bs + len(pool))
+    table = rng.permutation(np.arange(1, N)).reshape(B, mb).astype(np.int32)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    pos = np.asarray(_split_positions(bs), np.int32)
+    if pool == "int8":
+        kp, vp = (rng.integers(-127, 128, (N, bs, Hkv * D)).astype(np.int8)
+                  for _ in range(2))
+        shape = (N * T.scale_rows_per_block(Hkv), T.scale_pool_width(bs))
+        # scales as quantize_kv gives rows of unit normals (max|x| / 127)
+        ks, vs = (rng.uniform(0.015, 0.03, shape).astype(np.float32) for _ in range(2))
+        want = paged_flash_decode_q(*map(jnp.asarray, (q, kp, vp, ks, vs, table, pos)),
+                                    interpret=True)
+        return (q, kp, vp, table, pos, ks, vs), np.asarray(want)
+    kp, vp = (rng.standard_normal((N, bs, Hkv * D)).astype(np.float32) for _ in range(2))
+    jpool = jnp.asarray
+    if pool == "bf16":
+        kp, vp = (np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+                  for a in (kp, vp))
+        if bs % 16 == 0:
+            jpool = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+        # else the Pallas kernel takes bf16 pools only in 16-row blocks: the
+        # same values widened to f32 (f32 q: the same scores and sums)
+    want = paged_flash_decode_attention(jnp.asarray(q), jpool(kp), jpool(vp),
+                                        jnp.asarray(table), jnp.asarray(pos), interpret=True)
+    return (q, kp, vp, table, pos), np.asarray(want)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 7])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_paged_split_plain_matches_pallas(pool, bs, n_split):
+    """paged_flash_decode_split_plain (the kernel's splits, merged in split
+    order, with K5's / K6's rounding) == the Pallas kernels in interpret
+    mode, f32 q: 2e-5 over f32 and bf16 pools, 5e-3 over int8 pools (the
+    tolerances of the twins' own tests above)."""
+    arrays, want = _paged_split_case(pool, bs)
+    q, kp, vp, table, pos, *scales = map(torch.from_numpy, arrays)
+    if pool == "bf16":
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    rows = -(-SPLIT_ROWS // n_split)
+    assert -(-SPLIT_ROWS // rows) == n_split
+    got = FA.paged_flash_decode_split_plain(q, kp, vp, table, pos, *scales,
+                                            rows_per_split=rows)
+    tol = 5e-3 if pool == "int8" else 2e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
 
 
 def test_paged_splits_cover_the_table():

@@ -57,7 +57,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// -- cp.async, ldmatrix, mma.sync (K1, K2-K4) ----------------------------------
+// -- cp.async, ldmatrix, mma.sync (K1-K6) -------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -67,6 +67,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared (through L1); zero-filled (nothing read) when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

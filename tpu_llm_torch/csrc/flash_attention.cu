@@ -22,37 +22,13 @@
 // bf16 tensor-core rate (989 TFLOP/s); its bytes (q, out, K/V rows once)
 // are a few MB.
 //
-// K2, flash_decode_split_kernel: split over the sequence (flash-decoding).
-// The grid is (kv head, batch row, split); the wrapper picks the split
-// count from (B, Hkv, S) alone (decode_splits in ops/flash_attention.py,
-// about two CTAs an SM), never from the positions, so a CUDA graph
-// captures it with the position in a device tensor. A CTA of 128 threads
-// holds all G = H / Hkv query heads of its kv head (q as f32 in shared
-// memory, read as warp-wide broadcasts: G and D are runtime values), so
-// each cache row is read from device memory once and used G times. Its
-// rows come in 64-row tiles, 16-byte cp.async copies into two shared
-// stages (rows padded by 16 bytes: conflict-free 16-byte reads), the next
-// tile's copy in flight while this one is computed; the math is f32 on
-// CUDA cores. A split stores its unnormalised partial (acc, m, l); one
-// whose rows all lie past pos reads and stores nothing. The merge is in
-// the same launch: each split counts itself done on an int32 counter of
-// its (b, kv head) (atomicAdd after a __threadfence), and the last one
-// merges the partials of the splits that hold rows, in split order, so
-// the result does not depend on which split finishes last; it resets the
-// counter to 0, so the counters (kept by the wrapper, zero-filled once)
-// are 0 again for the next launch or graph replay. One launch a call: at
-// batch 1 a second, merging launch cost as much as the split kernel. With
-// one split the kernel writes the output itself.
-//
-// K3 runs the same body with APPEND set. What bounds it is what bounds
-// K2: the cache bytes of rows < pos plus the one row it stores, over
-// 3.35 TB/s (its old body, one CTA of 256 threads per (b, kv head) over
-// f32 tiles padded to D + 1, ran 4 CTAs at batch 1 and stayed well
-// under 1% of that). The split that holds pos copies key pos from k_cur / v_cur (in
-// the cache dtype) into its tile in place of the stale row, and stores
-// them at row pos; every other split ends before pos or lies past it and
-// exits, so no CTA reads the row being written. The merge, its counters
-// and the n_split == 1 path are K2's.
+// K2 and K3 are instantiations of the split decode body that K5 and K6
+// share (flash_decode_split_kernel, decode_split.cuh: its design and its
+// bound), with the flat row source: row s of batch row b at row b * S + s.
+// K2 rounds p to bf16 when q and the cache are both bf16; K3 runs the body
+// with APPEND set: the split that holds pos takes key pos from k_cur /
+// v_cur and stores it at row pos. What bounds K3 is what bounds K2: the
+// cache bytes of rows < pos plus the one row it stores, over 3.35 TB/s.
 //
 // K4, flash_prefill_kernel (bf16 q): tensor cores. One CTA of 4 warps per
 // (64-query tile, query head, b); each warp owns 16 query rows, its Q
@@ -89,6 +65,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -117,298 +94,6 @@ template <typename K>
 void allow_smem(K kernel, size_t bytes) {
   if (bytes > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// -- K2: decode split over the sequence ---------------------------------------
-
-constexpr int kSplitThreads = 128;
-constexpr int kSplitWarps = kSplitThreads / 32;
-constexpr int PKT = KT + 4;   // p_s row: heads g and g + 1 on other banks
-
-// 8 consecutive cache elements as f32 (16 bytes of bf16, 32 of f32)
-__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    x[2 * i] = __low2float(h2);
-    x[2 * i + 1] = __high2float(h2);
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
-}
-
-__device__ __forceinline__ void load4(const bf16* p, float (&x)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  x[0] = __low2float(a), x[1] = __high2float(a), x[2] = __low2float(b), x[3] = __high2float(b);
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-}
-
-// padded cache row in shared memory, in elements: 16 bytes past the row,
-// so 16-byte reads of one column by consecutive rows hit distinct banks
-template <typename CT>
-__host__ __device__ constexpr int split_row(int D) {
-  return D + 16 / (int)sizeof(CT);
-}
-
-template <typename CT>
-size_t split_smem(int G, int D, int n_split) {
-  return sizeof(CT) * 4 * KT * split_row<CT>(D) +
-         sizeof(float) * (2 * G * D + G * PKT + 3 * G + 2 * G * n_split + G);
-}
-
-template <typename QT, typename CT, bool ROUND_P, bool SPLIT, bool APPEND>
-__global__ void __launch_bounds__(kSplitThreads)
-flash_decode_split_kernel(const QT* __restrict__ q, CT* __restrict__ kc,
-                          CT* __restrict__ vc, const CT* __restrict__ k_cur,
-                          const CT* __restrict__ v_cur, const int* __restrict__ pos_arr,
-                          QT* __restrict__ out, float* __restrict__ part_acc,
-                          float* __restrict__ part_ml, int* __restrict__ counters, int H,
-                          int Hkv, int D, int S, int rows_per_split, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int is_last;
-  const int G = H / Hkv;
-  const int h = blockIdx.x;            // kv head
-  const int b = blockIdx.y;
-  const int split = blockIdx.z, n_split = gridDim.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int HkvD = Hkv * D;
-  const int RW = split_row<CT>(D);
-  CT* kv_s = reinterpret_cast<CT*>(smem_raw);        // [stage][K|V][KT][RW]
-  float* q_s = reinterpret_cast<float*>(kv_s + 4 * KT * RW);   // G x D
-  float* p_s = q_s + G * D;            // G x PKT
-  float* acc_s = p_s + G * PKT;        // G x D
-  float* m_s = acc_s + G * D;          // G
-  float* l_s = m_s + G;                // G
-  float* alpha_s = l_s + G;            // G
-  float* wm_s = alpha_s + G;           // merge: G x n_split maxima, then weights
-  float* wl_s = wm_s + G * n_split;    // G x n_split sums
-  float* inv_s = wl_s + G * n_split;   // G
-
-  const int pos = min(pos_arr[b], S - 1);
-  const int s_begin = split * rows_per_split;
-  const int s_end = min(pos + 1, s_begin + rows_per_split);   // exclusive
-  const int n_tiles = s_end > s_begin ? (s_end - s_begin + KT - 1) / KT : 0;
-  const int64_t head0 = (int64_t)b * H + (int64_t)h * G;       // first query head
-
-  if (n_tiles > 0) {   // a split past pos reads and stores nothing
-    CT* kb = kc + (int64_t)b * S * HkvD + (int64_t)h * D;
-    CT* vb = vc + (int64_t)b * S * HkvD + (int64_t)h * D;
-    constexpr int EPC = 16 / sizeof(CT);     // elements a 16-byte chunk
-    const int cpr = D / EPC;                 // chunks a row
-    // K3: key pos is this step's k_cur / v_cur (never the stale row), and
-    // the split that holds pos (the only one whose rows reach it) stores
-    // it at row pos of its kv head; no split reads row pos of the cache
-    const CT* kcur = APPEND ? k_cur + (int64_t)b * HkvD + (int64_t)h * D : nullptr;
-    const CT* vcur = APPEND ? v_cur + (int64_t)b * HkvD + (int64_t)h * D : nullptr;
-    if (APPEND && pos < s_end) {
-      for (int c = tid; c < cpr; c += kSplitThreads) {
-        const int64_t off = (int64_t)pos * HkvD + c * EPC;
-        *reinterpret_cast<uint4*>(kb + off) = *reinterpret_cast<const uint4*>(kcur + c * EPC);
-        *reinterpret_cast<uint4*>(vb + off) = *reinterpret_cast<const uint4*>(vcur + c * EPC);
-      }
-    }
-    auto load_tile = [&](int j) {
-      const int s0 = s_begin + j * KT;
-      CT* ks = kv_s + (j & 1) * 2 * KT * RW;
-      CT* vs = ks + KT * RW;
-      for (int c = tid; c < KT * cpr; c += kSplitThreads) {
-        const int r = c / cpr, col = (c - r * cpr) * EPC;
-        const bool ok = s0 + r < s_end;
-        const int64_t off = (int64_t)(ok ? s0 + r : s_begin) * HkvD + col;
-        const bool cur = APPEND && s0 + r == pos;
-        cp_async16(ks + r * RW + col, cur ? kcur + col : kb + off, ok);
-        cp_async16(vs + r * RW + col, cur ? vcur + col : vb + off, ok);
-      }
-    };
-    load_tile(0);
-    cp_async_commit();
-    // q and the softmax state while the first tile is in flight
-    const QT* qb = q + head0 * D;
-    for (int i = tid; i < G * D; i += kSplitThreads) {
-      q_s[i] = to_f32(qb[i]);
-      acc_s[i] = 0.f;
-    }
-    for (int g = tid; g < G; g += kSplitThreads) {
-      m_s[g] = NEG_INF;
-      l_s[g] = 0.f;
-    }
-
-    for (int j = 0; j < n_tiles; ++j) {
-      if (j + 1 < n_tiles) load_tile(j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const int s0 = s_begin + j * KT;
-      const int nk = min(KT, s_end - s0);
-      const CT* ks = kv_s + (j & 1) * 2 * KT * RW;
-      const CT* vs = ks + KT * RW;
-
-      // scores: thread -> key s, heads hg, hg + 2, ... (a warp shares hg,
-      // so its q reads are broadcasts); rows past nk are zeros in shared memory
-      {
-        const int s = tid & (KT - 1), hg = tid / KT;
-        constexpr int GC = 4;
-        for (int g0 = hg; g0 < G; g0 += 2 * GC) {
-          float dot[GC] = {0.f, 0.f, 0.f, 0.f};
-          for (int c = 0; c < D; c += 8) {
-            float kx[8];
-            load8(ks + s * RW + c, kx);
-#pragma unroll
-            for (int u = 0; u < GC; ++u) {
-              const int g = g0 + 2 * u;
-              if (g < G) {
-                const float4 qa = *reinterpret_cast<const float4*>(q_s + g * D + c);
-                const float4 qc = *reinterpret_cast<const float4*>(q_s + g * D + c + 4);
-                float d = dot[u];
-                d = fmaf(qa.x, kx[0], d); d = fmaf(qa.y, kx[1], d);
-                d = fmaf(qa.z, kx[2], d); d = fmaf(qa.w, kx[3], d);
-                d = fmaf(qc.x, kx[4], d); d = fmaf(qc.y, kx[5], d);
-                d = fmaf(qc.z, kx[6], d); d = fmaf(qc.w, kx[7], d);
-                dot[u] = d;
-              }
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < GC; ++u) {
-            const int g = g0 + 2 * u;
-            if (g < G) p_s[g * PKT + s] = s < nk ? dot[u] * sm_scale : NEG_INF;
-          }
-        }
-      }
-      __syncthreads();
-      for (int g = warp; g < G; g += kSplitWarps) {
-        float mx = NEG_INF;
-        for (int s = lane; s < KT; s += 32) mx = fmaxf(mx, p_s[g * PKT + s]);
-        mx = warp_max(mx);
-        const float m_prev = m_s[g];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int s = lane; s < KT; s += 32) {
-          const float p = s < nk ? expf(p_s[g * PKT + s] - m_new) : 0.f;
-          sum += p;
-          p_s[g * PKT + s] = ROUND_P ? round_bf16(p) : p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          m_s[g] = m_new;
-          l_s[g] = alpha * l_s[g] + sum;
-          alpha_s[g] = alpha;
-        }
-      }
-      __syncthreads();
-      // AV: thread -> (head g, 4 columns); p past nk is 0 and V rows past nk
-      // are zeros, so the key loop runs in whole steps of 4
-      const int nk4 = (nk + 3) & ~3;
-      for (int it = tid; it < G * (D / 4); it += kSplitThreads) {
-        const int g = it / (D / 4), d0 = (it - g * (D / 4)) * 4;
-        float a[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int s = 0; s < nk4; s += 4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(p_s + g * PKT + s);
-          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            float vx[4];
-            load4(vs + (s + u) * RW + d0, vx);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) a[e] = fmaf(pv[u], vx[e], a[e]);
-          }
-        }
-        const float alpha = alpha_s[g];
-        float* acc = acc_s + g * D + d0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[e] = acc[e] * alpha + a[e];
-      }
-      __syncthreads();
-    }
-
-    if (!SPLIT) {
-      QT* ob = out + head0 * D;
-      for (int i = tid; i < G * D; i += kSplitThreads) {
-        const float l = l_s[i / D];
-        const float inv = l == 0.f ? 1.f : 1.f / l;
-        ob[i] = from_f32<QT>(acc_s[i] * inv);
-      }
-      return;
-    }
-    for (int i = tid; i < G * D; i += kSplitThreads) {
-      const int g = i / D, d = i - g * D;
-      part_acc[((head0 + g) * n_split + split) * D + d] = acc_s[i];
-    }
-    for (int g = tid; g < G; g += kSplitThreads) {
-      part_ml[((head0 + g) * n_split + split) * 2] = m_s[g];
-      part_ml[((head0 + g) * n_split + split) * 2 + 1] = l_s[g];
-    }
-  }
-  if (!SPLIT) return;
-
-  // The last split of (b, kv head) to finish merges the partials of the
-  // splits that hold rows (i <= pos / rows_per_split; the others add
-  // nothing), in split order, so the result does not depend on which
-  // split is last: out = sum_i e^(m_i - m) acc_i / sum_i e^(m_i - m) l_i.
-  // It then resets the counter to 0 for the next launch.
-  int* counter = counters + (int64_t)b * Hkv + h;
-  __threadfence();                     // this split's partial, device-wide
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(counter, 1) == n_split - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  const int n_used = min(n_split, pos / rows_per_split + 1);
-  for (int gi = tid; gi < G * n_used; gi += kSplitThreads) {
-    const int g = gi / n_used, i = gi - g * n_used;
-    const float2 ml = __ldcg(reinterpret_cast<const float2*>(
-        part_ml + ((head0 + g) * n_split + i) * 2));
-    wm_s[g * n_used + i] = ml.x;
-    wl_s[g * n_used + i] = ml.y;
-  }
-  __syncthreads();
-  for (int g = tid; g < G; g += kSplitThreads) {
-    float m = NEG_INF;
-    for (int i = 0; i < n_used; ++i) m = fmaxf(m, wm_s[g * n_used + i]);
-    float l = 0.f;
-    for (int i = 0; i < n_used; ++i) {
-      const float w = expf(wm_s[g * n_used + i] - m);
-      l = fmaf(w, wl_s[g * n_used + i], l);
-      wm_s[g * n_used + i] = w;
-    }
-    inv_s[g] = l == 0.f ? 1.f : 1.f / l;
-  }
-  __syncthreads();
-  for (int it = tid; it < G * (D / 4); it += kSplitThreads) {
-    const int g = it / (D / 4), d0 = (it - g * (D / 4)) * 4;
-    const float* pa = part_acc + (head0 + g) * n_split * D + d0;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int i = 0; i < n_used; ++i) {
-      const float w = wm_s[g * n_used + i];
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(pa + (int64_t)i * D));
-      a.x = fmaf(w, x.x, a.x);
-      a.y = fmaf(w, x.y, a.y);
-      a.z = fmaf(w, x.z, a.z);
-      a.w = fmaf(w, x.w, a.w);
-    }
-    const float inv = inv_s[g];
-    QT* o = out + (head0 + g) * D + d0;
-    o[0] = from_f32<QT>(a.x * inv);
-    o[1] = from_f32<QT>(a.y * inv);
-    o[2] = from_f32<QT>(a.z * inv);
-    o[3] = from_f32<QT>(a.w * inv);
-  }
-  if (tid == 0) *counter = 0;
 }
 
 // -- K4, bf16 q: causal prefill on tensor cores -------------------------------
@@ -794,38 +479,6 @@ flash_prefill_simt_kernel(const float* __restrict__ q, const CT* __restrict__ kc
 
 // -- launches -----------------------------------------------------------------
 
-template <typename QT, typename CT, bool ROUND_P, bool SPLIT, bool APPEND>
-void launch_split_main(const void* q, void* kc, void* vc, const void* k_cur,
-                       const void* v_cur, const int* pos, void* out, float* part_acc,
-                       float* part_ml, int* counters, int B, int H, int Hkv, int D, int S,
-                       int rows_per_split, int n_split, float sm_scale, cudaStream_t st) {
-  auto kernel = flash_decode_split_kernel<QT, CT, ROUND_P, SPLIT, APPEND>;
-  const size_t smem = split_smem<CT>(H / Hkv, D, n_split);
-  allow_smem(kernel, smem);
-  kernel<<<dim3(Hkv, B, n_split), kSplitThreads, smem, st>>>(
-      static_cast<const QT*>(q), static_cast<CT*>(kc), static_cast<CT*>(vc),
-      static_cast<const CT*>(k_cur), static_cast<const CT*>(v_cur), pos,
-      static_cast<QT*>(out), part_acc, part_ml, counters, H, Hkv, D, S, rows_per_split,
-      sm_scale);
-}
-
-template <typename QT, typename CT, bool ROUND_P>
-void launch_split(const void* q, void* kc, void* vc, const void* k_cur, const void* v_cur,
-                  const int* pos, void* out, float* part_acc, float* part_ml, int* counters,
-                  int B, int H, int Hkv, int D, int S, int rows_per_split, int n_split,
-                  float sm_scale, cudaStream_t st) {
-#define TLT_SPLIT(SP, AP)                                                                  \
-  launch_split_main<QT, CT, ROUND_P, SP, AP>(q, kc, vc, k_cur, v_cur, pos, out, part_acc, \
-                                             part_ml, counters, B, H, Hkv, D, S,          \
-                                             rows_per_split, n_split, sm_scale, st)
-  const bool append = k_cur != nullptr;
-  if (n_split == 1 && append) TLT_SPLIT(false, true);
-  else if (n_split == 1) TLT_SPLIT(false, false);
-  else if (append) TLT_SPLIT(true, true);
-  else TLT_SPLIT(true, false);
-#undef TLT_SPLIT
-}
-
 template <typename CT, int D>
 void launch_prefill_tc(const void* q, const void* kc, const void* vc, void* out, int B, int T,
                        int H, int Hkv, int S, int offset, float sm_scale, cudaStream_t st) {
@@ -878,14 +531,15 @@ TLT_API int tlt_flash_decode(const void* q, int q_bf16, void* kc, void* vc, int 
                              void* out, void* part_acc, void* part_ml, void* counters, int B,
                              int H, int Hkv, int D, int S, int rows_per_split, int n_split,
                              float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  int* cn = static_cast<int*>(counters);
-#define TLT_DEC(QT, CT, RP)                                                              \
-  launch_split<QT, CT, RP>(q, kc, vc, k_cur, v_cur, p, out, pa, pm, cn, B, H, Hkv, D, S, \
-                           rows_per_split, n_split, sm_scale, st)
+  const tlt::SplitLaunch a{q, kc, vc, k_cur, v_cur, static_cast<const int*>(pos), out,
+                           static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+                           static_cast<int*>(counters), B, H, Hkv, D, rows_per_split,
+                           n_split, sm_scale, static_cast<cudaStream_t>(stream)};
+  const tlt::FlatRows rows{S};
+  const bool append = k_cur != nullptr;
+#define TLT_DEC(QT, CT, RP)                                         \
+  (append ? tlt::launch_decode_split<tlt::FlatRows, QT, CT, RP, true>(a, rows) \
+          : tlt::launch_decode_split<tlt::FlatRows, QT, CT, RP, false>(a, rows))
   if (q_bf16 && cache_bf16)
     TLT_DEC(bf16, bf16, true);
   else if (q_bf16)

@@ -54,13 +54,14 @@ SIGNATURES = {
     "tlt_flash_prefill": [_P, _I, _P, _P, _I, _P,
                           _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, q_bf16, k_pool, v_pool, pool_bf16, table, pos, out, part_acc,
-    # part_ml, B, H, Hkv, D, BS, MB, rows_per_split, n_split, sm_scale, stream
-    "tlt_paged_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+    # part_ml, counters, B, H, Hkv, D, BS, MB, rows_per_split, n_split,
+    # sm_scale, stream
+    "tlt_paged_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, q_bf16, k_pool, v_pool, k_scale, v_scale, HP, SP, table, pos, out,
-    # part_acc, part_ml, B, H, Hkv, D, BS, MB, rows_per_split, n_split,
-    # sm_scale, stream
-    "tlt_paged_decode_q": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+    # part_acc, part_ml, counters, B, H, Hkv, D, BS, MB, rows_per_split,
+    # n_split, sm_scale, stream
+    "tlt_paged_decode_q": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # kind, rows -> CTAs of the cooperative launch
     "tlt_ffn_grid": [_I, _I],

@@ -31,10 +31,13 @@ And, in ``csrc/paged_attention.cu``:
 - ``paged_flash_decode_q`` (K6, ``_paged_decode_q_kernel``): the same over
   int8 pools with 2-D scale pools (``--cache-dtype int8 --paged``).
 
-Each wrapper takes its plain twin for CPU tensors and launches its kernel
-for CUDA tensors, or raises; ``<wrapper>.launches`` counts the kernel
-launches. The kernels take head_dim a multiple of 16 up to 128; K2 and K4
-copy 16-byte chunks, so their tensors start on 16-byte boundaries.
+K2, K3, K5 and K6 launch one split decode body (``csrc/decode_split.cuh``),
+split by ``decode_splits`` and merged in the same launch; K5 and K6 find
+each row through the block table. Each wrapper takes its plain twin for
+CPU tensors and launches its kernel for CUDA tensors, or raises;
+``<wrapper>.launches`` counts the kernel launches. The kernels take
+head_dim a multiple of 16 up to 128; they copy 16-byte chunks, so caches
+and pools start on 16-byte boundaries.
 """
 
 from __future__ import annotations
@@ -104,7 +107,8 @@ SPLIT_TARGET_CTAS = 264
 SPLIT_TILE = 64          # keys per tile of the split decode kernels
 
 
-# K2's and K3's merge counters: one int32 per (b, kv head), a buffer per device,
+# The split decode kernels' merge counters (K2, K3, K5, K6): one int32 per
+# (b, kv head), a buffer per device,
 # zero-filled once. Each launch leaves them at 0 again (the last split of a
 # (b, kv head) resets its counter), so launches on one stream and CUDA
 # graph replays share them.
@@ -124,6 +128,21 @@ def _merge_counters(device, n: int) -> torch.Tensor:
         counters = torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device)
         _split_counters[device] = counters
     return counters
+
+
+def _split_scratch(q, Hkv: int, n_split: int):
+    """(part_acc, part_ml, merge counters) of a split launch over q (B, 1,
+    H, D); all None with one split (the kernel writes the output itself)."""
+    if n_split == 1:
+        return None, None, None
+    B, _, H, D = q.shape
+    part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32, device=q.device)
+    return part_acc, part_ml, _merge_counters(q.device, B * Hkv)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def decode_splits(B: int, Hkv: int, max_rows: int):
@@ -153,18 +172,31 @@ def flash_decode_attention_split_plain(q, k_cache, v_cache, positions,
     split (m = NEG_INF, l = 0, acc = 0) past pos; the partials merge in
     split order as the kernel's last split merges them (empty splits add
     nothing)."""
-    B, _, H, D = q.shape
+    B, _, _, D = q.shape
     S = k_cache.shape[1]
     pos = _row_positions(positions, B, q.device).clamp(max=S - 1).long()
     k4 = k_cache.reshape(B, S, -1, D).float()
     v4 = v_cache.reshape(B, S, -1, D).float()
-    Hkv = k4.shape[2]
     if rows_per_split is None:
-        rows_per_split = decode_splits(B, Hkv, S)[0]
-    qg = q.float().reshape(B, Hkv, H // Hkv, D)
+        rows_per_split = decode_splits(B, k4.shape[2], S)[0]
+    return _split_merge_plain(q, q.float(), k4, v4, pos, rows_per_split,
+                              _bf16_inputs(q, k_cache, v_cache))
+
+
+def _split_merge_plain(q, qf, k4, v4, pos, rows_per_split, round_p, ks=None, vs=None):
+    """The split decode kernels' arithmetic over f32 (B, S, Hkv, D) rows:
+    qf (B, 1, H, D) f32 scores q . k * sm_scale (times ks (B, Hkv, S) for
+    int8 rows), each split's partial over its rows s <= pos[b] with the AV
+    weight p (times vs), rounded to bf16 when ``round_p``, merged in split
+    order. Output in q's dtype."""
+    B, _, H, D = q.shape
+    S, Hkv = k4.shape[1], k4.shape[2]
+    qg = qf.reshape(B, Hkv, H // Hkv, D)
     scores = torch.einsum("bhgd,bshd->bhgs", qg, k4) * (1.0 / D ** 0.5)
+    if ks is not None:
+        scores = scores * ks[:, :, None, :]
     visible = torch.arange(S, device=q.device)[None, :] <= pos[:, None]   # (B, S)
-    round_p = _bf16_inputs(q, k_cache, v_cache)
+    v4 = v4.masked_fill(~visible[:, :, None, None], 0.0)   # rows past pos add nothing
     parts = []
     for s0 in range(0, S, rows_per_split):
         vis = visible[:, None, None, s0:s0 + rows_per_split]
@@ -172,6 +204,8 @@ def flash_decode_attention_split_plain(q, k_cache, v_cache, positions,
         m = sc.amax(dim=-1)
         p = torch.exp(sc - m[..., None]).masked_fill(~vis, 0.0)
         l = p.sum(dim=-1)
+        if vs is not None:
+            p = (p * vs[:, :, None, s0:s0 + rows_per_split]).masked_fill(~vis, 0.0)
         if round_p:
             p = p.bfloat16().float()
         acc = torch.einsum("bhgs,bshd->bhgd", p, v4[:, s0:s0 + rows_per_split])
@@ -219,17 +253,11 @@ def _split_decode_launch(name, q, kc, vc, kcur, vcur, positions):
     q = q.contiguous()
     pos = _row_positions(positions, B, q.device)
     out = torch.empty_like(q)
-    scratch = (None, None, None)
-    if n_split > 1:
-        part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32, device=q.device)
-        scratch = (part_acc.data_ptr(), part_ml.data_ptr(),
-                   _merge_counters(q.device, B * Hkv).data_ptr())
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    scratch = _split_scratch(q, Hkv, n_split)
     code = build.lib().tlt_flash_decode(
         q.data_ptr(), _is_bf16(q), kc.data_ptr(), vc.data_ptr(), _is_bf16(kc),
-        ptr(kcur), ptr(vcur), pos.data_ptr(), out.data_ptr(), *scratch, B, H, Hkv, D, S,
-        rows, n_split, 1.0 / D ** 0.5, build.stream_ptr(q.device))
+        _ptr(kcur), _ptr(vcur), pos.data_ptr(), out.data_ptr(), *map(_ptr, scratch),
+        B, H, Hkv, D, S, rows, n_split, 1.0 / D ** 0.5, build.stream_ptr(q.device))
     build.check(code, name)
     return out
 
@@ -366,6 +394,33 @@ def paged_flash_decode_q_plain(q, k_pool, v_pool, k_scale, v_scale, block_table,
     return gqa_attention(q, k, v, pos.reshape(B, 1), kv_lengths=pos + 1)
 
 
+def paged_flash_decode_split_plain(q, k_pool, v_pool, block_table, positions,
+                                   k_scale=None, v_scale=None, rows_per_split=None):
+    """K5's and K6's split-and-merge in plain PyTorch (for the tests): the
+    rows gathered through the table, split in runs of ``rows_per_split``
+    (``decode_splits(B, Hkv, MB*BS)`` by default), each split's partial
+    over its rows s <= pos[b] (empty past pos), merged in split order, as
+    the kernel computes them. f32/bf16 pools (K5): p rounded to bf16 when
+    q is bf16. int8 pools with ``k_scale`` / ``v_scale`` (K6): q rounded
+    to bf16, the score times the row's k scale, l over the unrounded p,
+    the AV weight p * vs rounded to bf16. Table entries past pos // BS
+    must index the pool but are never used."""
+    B, _, H, D = q.shape
+    n, bs, kvd = k_pool.shape
+    Hkv, S = kvd // D, block_table.shape[1] * bs
+    pos = _row_positions(positions, B, q.device).clamp(max=S - 1).long()
+    k4, v4 = (_gather_pool(p, block_table).float().reshape(B, S, Hkv, D)
+              for p in (k_pool, v_pool))
+    if rows_per_split is None:
+        rows_per_split = decode_splits(B, Hkv, S)[0]
+    if k_scale is None:
+        return _split_merge_plain(q, q.float(), k4, v4, pos, rows_per_split,
+                                  q.dtype == torch.bfloat16)
+    ks, vs = (gather_scale_pool(sc, block_table, n, Hkv, bs) for sc in (k_scale, v_scale))
+    return _split_merge_plain(q, q.bfloat16().float(), k4, v4, pos, rows_per_split, True,
+                              ks, vs)
+
+
 def _check_paged_args(q, k_pool, v_pool, block_table, pool_dtypes):
     B, T = q.shape[:2]
     if T != 1:
@@ -379,9 +434,11 @@ def _check_paged_args(q, k_pool, v_pool, block_table, pool_dtypes):
                          f"got {tuple(block_table.shape)} {block_table.dtype}")
 
 
-def _paged_launch(name, q, k_pool, block_table, positions, call):
-    """Shared set-up of the K5 / K6 launches; ``call`` gets the
-    arguments that follow the pools and scales in the C signature."""
+def _paged_launch(name, q, k_pool, v_pool, block_table, positions, call):
+    """Shared set-up of the K5 / K6 launches (the split decode body over
+    the pools, one launch); ``call`` gets the arguments that follow the
+    pools and scales in the C signature."""
+    _check_aligned(name, k_pool, v_pool)
     B, _, H, D = q.shape
     Hkv = k_pool.shape[2] // D
     bs, mb = k_pool.shape[1], block_table.shape[1]
@@ -389,14 +446,9 @@ def _paged_launch(name, q, k_pool, block_table, positions, call):
     q = q.contiguous()
     pos = _row_positions(positions, B, q.device)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32, device=q.device)
+    scratch = _split_scratch(q, Hkv, n_split)
     code = call(q, block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                None if part_acc is None else part_acc.data_ptr(),
-                None if part_ml is None else part_ml.data_ptr(),
-                B, H, Hkv, D, bs, mb, rows, n_split, 1.0 / D ** 0.5,
+                *map(_ptr, scratch), B, H, Hkv, D, bs, mb, rows, n_split, 1.0 / D ** 0.5,
                 build.stream_ptr(q.device))
     build.check(code, name)
     return out
@@ -408,13 +460,15 @@ def paged_flash_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """q (B, 1, H, D); pools (N, BS, Hkv*D) f32/bf16; block_table (B, MB)
     int32; positions (B,) or (B, 1). Row b attends its logical rows s <=
     positions[b]; table entries past positions[b] // BS are never read.
-    Returns (B, 1, H, D) in q's dtype."""
+    Returns (B, 1, H, D) in q's dtype. On the card it shares the split
+    decode kernels' merge counters: make the first call outside a graph
+    capture, and launches on one device on one stream at a time."""
     if _on_cpu(q, k_pool, v_pool, block_table):
         return paged_flash_decode_attention_plain(q, k_pool, v_pool, block_table,
                                                   positions)
     _check_paged_args(q, k_pool, v_pool, block_table, _FLOAT_PLANES)
     out = _paged_launch(
-        "paged_flash_decode_attention", q, k_pool, block_table, positions,
+        "paged_flash_decode_attention", q, k_pool, v_pool, block_table, positions,
         lambda qc, *rest: build.lib().tlt_paged_decode(
             qc.data_ptr(), _is_bf16(qc), k_pool.data_ptr(), v_pool.data_ptr(),
             _is_bf16(k_pool), *rest))
@@ -447,7 +501,7 @@ def paged_flash_decode_q(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Te
                              f"{sc.dtype}")
     hp, sp = k_scale.shape[0] // n, k_scale.shape[1]
     out = _paged_launch(
-        "paged_flash_decode_q", q, k_pool, block_table, positions,
+        "paged_flash_decode_q", q, k_pool, v_pool, block_table, positions,
         lambda qc, *rest: build.lib().tlt_paged_decode_q(
             qc.data_ptr(), _is_bf16(qc), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), hp, sp, *rest))
