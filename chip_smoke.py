@@ -25,15 +25,16 @@ Phases, one JSON line each:
    block past pos // BS and block 0 poisoned (NaN): the output must not
    change; each case reports its split count and the kernels one call
    launches (the profiler's count; more than one fails). K2 (split over
-   the sequence) and K4 (tensor cores for bf16 q) run at the shapes the
+   the sequence) and K4 (tensor cores) run at the shapes the
    `llm` CLI gives them (bf16 q over its f32
    2048-row cache: K2 at positions 15, 1000, 2047; K4 at T 512, offset
    0), and again at the shapes serving gives them (bf16 q over bf16
    planes: K2 at batch 8 with positions 15-1023, K4 over one slot's
    1024-row view at offset 256 and 0); the kernels line reports the
-   serving case and, as `cli_case`, the CLI's; K4 also runs its CUDA-core
-   body (f32 q over the CLI's f32 cache, T 512) beside f32 SDPA, reported
-   as `f32_q_case`. K1 runs for q4_0 and
+   serving case and, as `cli_case`, the CLI's; K4 also runs f32 q (the
+   CLI's --dtype f32, three bf16 parts on the tensor cores) over the CLI's
+   f32 cache and over a bf16 one (--cache-dtype bf16), T 512, beside f32
+   SDPA, reported as `f32_q_case` and `f32_q_bf16_cache_case`. K1 runs for q4_0 and
    q8_0 (f32 planes) at every projection and for every other kind (q4_1,
    q5_0, q5_1, q2_k, q2_kp, q3_k, q3_kp, q6_k, q6_kp; f32 and bf16 planes;
    random planes in each kind's range) at w13 and wcls, 1 and 8 rows (with
@@ -47,8 +48,8 @@ Phases, one JSON line each:
    f16-bit int16 planes; 1 and 8 rows), and at the 5 rows of a k = 4
    verify window (q4_0 and its q4_0i4, every projection). K3 again on
    bench.py's bf16 (1, 1024, 256) cache at positions 16, 340 and 655. K7
-   (the FFN megakernel) runs for q4_0 and q8_0 at 1 and 8 rows, timed
-   beside the unfused path it replaces.
+   (the FFN megakernel, on K1's tensor-core tile) runs for q4_0 and q8_0
+   at 1 and 8 rows, timed beside the unfused path it replaces.
 3. cli — the port's `llm` CLI on tiny GGUFs written here with the port's
    own writer (f32 and Q4_0 with --dtype f32 and native; Q4_K and Q6_K
    native; Q4_K native --fold-norms; Q4_0 native with
@@ -78,8 +79,15 @@ Phases, one JSON line each:
 7. megakernel — the phase-5 model with TPU_LLM_FFN_MEGAKERNEL set:
    Engine.generate (16 + 128), one decode step's launches (22 ffn_fused),
    a decode step's logits and the dense BatchEngine's batch-8 decode
-   logits held against the plain path, and 48 decode steps timed with
-   the switch off, on, on, off.
+   logits held against the plain path, 48 decode steps timed with the
+   switch off, on, on, off, and 16 profiled decode steps with the switch
+   on and off (device ms a step, K7's and K1's share of it).
+7b. f32 full width — TinyLlama-1.1B width and depth with dense f32
+   weights from seed 9 (what `llm --dtype f32 --cache-dtype f32` loads),
+   TF32 off: a 512-token prompt through Engine.generate (TTFT; K4 takes
+   the prefill, 22 launches), the prefill profiled (K4's device ms), and
+   the first-token logits held against the plain path at 1e-3 *
+   max|logit| (the bf16 paths' logits: 2e-2).
 8. scan full width — the phase-5 model: the step loop and
    Engine.generate(use_scan=True) (16 + 128 greedy, f32 cache) give equal
    tokens; bench.py's program (decode_step(defer_kv=True), bf16 cache of
@@ -407,8 +415,8 @@ def check_kernels(torch, timer):
                qf, kt, vt, is_causal=True, enable_gqa=True)),
            nbytes(qp) * 2 + 2 * B * T * Hkv * D * it,
            4.0 * B * H * D * T * (T + 1) / 2, "f32")
-    # K4's CUDA-core body: f32 q (the `llm` CLI's --dtype f32) over the same
-    # f32 cache, f32 SDPA beside it
+    # f32 q (the `llm` CLI's --dtype f32) over the same f32 cache, f32 SDPA
+    # beside it
     qf32 = qp.float()
     info = dict(B=B, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=0, q="f32", cache="f32")
     got = FA.flash_gqa_attention(qf32, k4, v4, 0)
@@ -420,6 +428,21 @@ def check_kernels(torch, timer):
            timer.ms(lambda: F.scaled_dot_product_attention(
                qf, kt, vt, is_causal=True, enable_gqa=True)),
            nbytes(qf32) * 2 + 2 * B * T * Hkv * D * it,
+           4.0 * B * H * D * T * (T + 1) / 2, "f32")
+    # f32 q over a bf16 cache of the same shape (--dtype f32 --cache-dtype
+    # bf16): f32 SDPA over the same rows widened to f32 beside it
+    kb4, vb4 = k4.bfloat16(), v4.bfloat16()
+    info = dict(B=B, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=0, q="f32", cache="bf16")
+    got = FA.flash_gqa_attention(qf32, kb4, vb4, 0)
+    err, tol = compare("flash_gqa_attention", got,
+                       FA.flash_gqa_attention_plain(qf32, kb4, vb4, 0), False, **info)
+    kbt, vbt = (c[:, :T].float().transpose(1, 2) for c in (kb4, vb4))
+    record("flash_gqa_attention", info, err, tol,
+           timer.ms(lambda: FA.flash_gqa_attention(qf32, kb4, vb4, 0)),
+           timer.ms(lambda: FA.flash_gqa_attention_plain(qf32, kb4, vb4, 0)),
+           timer.ms(lambda: F.scaled_dot_product_attention(
+               qf, kbt, vbt, is_causal=True, enable_gqa=True)),
+           nbytes(qf32) * 2 + 2 * B * T * Hkv * D * kb4.element_size(),
            4.0 * B * H * D * T * (T + 1) / 2, "f32")
     check_serving_shapes(torch, timer, g, compare, record)
     check_paged_kernels(torch, timer, g, compare, record, cases)
@@ -973,9 +996,9 @@ def profile_busy(torch, run, steps: int, groups=None):
     return out
 
 
-def profile_decode(torch, params, cfg, max_seq: int, steps: int):
+def profile_decode(torch, params, cfg, max_seq: int, steps: int, groups=None):
     """The device busy share over ``steps`` decode steps of the CLI path
-    (K2, positions 16..)."""
+    (K2, positions 16..); ``groups`` as in profile_busy."""
     from tpu_llm_torch.models import llama as M
 
     cache = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
@@ -991,7 +1014,7 @@ def profile_decode(torch, params, cfg, max_seq: int, steps: int):
                 logits, cache = M.decode_step(params, cfg, tok, cache, pos)
                 tok = torch.argmax(logits, dim=-1)
 
-        return profile_busy(torch, run, steps)
+        return profile_busy(torch, run, steps, groups)
 
 
 @contextlib.contextmanager
@@ -1053,9 +1076,9 @@ def drive_run(torch, name, fn, must, runs, total):
     return out, counts
 
 
-def logits_vs_plain(torch, label, kern_fn):
+def logits_vs_plain(torch, label, kern_fn, rel_tol=2e-2):
     """``kern_fn()`` on the kernel path and under plain_path(): top-1 equal
-    and max error <= 2e-2 * max|logit|."""
+    and max error <= rel_tol * max|logit| (2e-2 for the bf16 paths)."""
     with torch.inference_mode():
         kern = kern_fn()
         with plain_path():
@@ -1063,7 +1086,7 @@ def logits_vs_plain(torch, label, kern_fn):
     if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
         fail(f"{label}: logits are not finite")
     err = (kern - plain).abs().max().item()
-    tol = 2e-2 * plain.abs().max().item()
+    tol = rel_tol * plain.abs().max().item()
     top2 = torch.topk(plain, 2).values
     row = dict(run=label, top1_kernel=int(kern.argmax()), top1_plain=int(plain.argmax()),
                max_abs_err=err, tol=tol, max_abs_logit=plain.abs().max().item(),
@@ -1672,6 +1695,12 @@ def megakernel_full_width(torch, params, cfg):
                 del os.environ["TPU_LLM_FFN_MEGAKERNEL"]
                 ab["off"].append(decode_ms())
                 os.environ["TPU_LLM_FFN_MEGAKERNEL"] = "1"
+        # the device side of a decode step, switch on and off: K7 and K1
+        groups = {"ffn_fused": ("ffn_tc_kernel",), "qmatmul": ("qmm_tc_kernel",)}
+        prof = {"on": profile_decode(torch, params, cfg, max_seq, 16, groups)}
+        del os.environ["TPU_LLM_FFN_MEGAKERNEL"]
+        prof["off"] = profile_decode(torch, params, cfg, max_seq, 16, groups)
+        os.environ["TPU_LLM_FFN_MEGAKERNEL"] = "1"
         (reqs, steps, wall), bcounts = drive_run(
             torch, "megakernel_dense_batch8", serve,
             ("qmatmul", "ffn_fused", "flash_decode_attention"), runs, total)
@@ -1682,9 +1711,88 @@ def megakernel_full_width(torch, params, cfg):
                per_step=per_step, logits_err=lv["max_abs_err"], logits_tol=lv["tol"],
                batch8_tokens_per_s=sum(len(r.tokens) for r in reqs) / wall,
                batch8_engine_steps=steps, batch8_launches=bcounts,
-               decode_ms_per_step_switch_off=ab["off"], decode_ms_per_step_switch_on=ab["on"])
+               decode_ms_per_step_switch_off=ab["off"], decode_ms_per_step_switch_on=ab["on"],
+               decode_tok_s_switch_off=[1e3 / m for m in ab["off"]],
+               decode_tok_s_switch_on=[1e3 / m for m in ab["on"]],
+               **{f"device_ms_per_step_switch_{k}": v.get("device_ms_per_step")
+                  for k, v in prof.items()},
+               **{f"{n}_per_step_switch_{k}": v.get(n) for k, v in prof.items()
+                  for n in groups})
     emit("megakernel_full_width", **row)
     del eng, engine
+    torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, row=row)
+
+
+# -- phase 7b: f32 activations at full width (the `llm` CLI's default) --------------
+
+def synth_dense_f32(torch, cfg, seed: int):
+    """TinyLlama-shaped dense f32 weights built on the card from a seeded
+    generator (std 0.02; fused wqkv / w13, per-layer list): what `llm
+    --dtype f32` loads from an f32 GGUF."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    E, Fh, V, KV = cfg.dim, cfg.hidden_dim, cfg.vocab_size, cfg.kv_dim
+
+    def w(K, N):
+        return torch.randn((K, N), generator=g, device="cuda") * 0.02
+
+    ones = lambda: torch.ones(E, device="cuda")  # noqa: E731
+    layers = [{"attn_norm": ones(), "ffn_norm": ones(), "wqkv": w(E, E + 2 * KV),
+               "wo": w(E, E), "w13": w(E, 2 * Fh), "w2": w(Fh, E)}
+              for _ in range(cfg.n_layers)]
+    return {"tok_emb": w(V, E), "final_norm": ones(), "wcls": w(E, V), "layers": layers}
+
+
+def f32_full_width(torch):
+    """TinyLlama-1.1B width and depth, dense f32 weights, f32 activations
+    and cache (`llm`'s defaults --dtype f32 --cache-dtype f32), TF32 off:
+    a 512-token prompt through Engine.generate, whose prefill takes K4 with
+    f32 q over the f32 2048-row cache (its scores pass 64 MB), one launch a
+    layer; the prefill profiled for K4's device ms; the first-token logits
+    against the plain path."""
+    import numpy as np
+
+    from tpu_llm_torch.config import tinyllama_1_1b
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(tinyllama_1_1b(), rope_variant="neox")
+    params = synth_dense_f32(torch, cfg, seed=9)
+    max_seq = 2048
+    engine = Engine(params, ModelAdapter.llama(cfg, torch.float32, bos_id=1, device="cuda"),
+                    max_seq=max_seq, device="cuda")
+    prompt512 = [int(t) for t in np.random.default_rng(13).integers(3, cfg.vocab_size, 511)]
+    engine.generate(prompt512, n_new=2)          # warm-up: allocator, cuBLAS handles
+    runs, total = {}, {n: 0 for n in counters()}
+    res, counts = drive_run(torch, "f32_generate_512_16",
+                            lambda: engine.generate(prompt512, n_new=16),
+                            ("flash_gqa_attention", "flash_decode_attention"), runs, total)
+    if counts["flash_gqa_attention"] != cfg.n_layers:
+        fail(f"f32 512-token prefill: {counts['flash_gqa_attention']} K4 launches, "
+             f"not one a layer ({cfg.n_layers})")
+    ids = torch.tensor([[1] + prompt512], device="cuda")
+
+    def prefill():
+        c = M.init_cache(cfg, 1, max_seq, torch.float32, "cuda")
+        with torch.inference_mode():
+            M.forward(params, cfg, ids, c, 0)
+
+    prof = profile_busy(torch, prefill, 1, {"flash_gqa_attention": ("flash_prefill",)})
+    lv = logits_vs_plain(torch, "f32_full_width_512_first_token",
+                         first_logits_fn(torch, params, cfg, ids, max_seq), rel_tol=1e-3)
+    k4 = prof.get("flash_gqa_attention", {})
+    row = dict(prompt_tokens=512, new_tokens=16, ttft_ms=res.ttft_s * 1e3,
+               decode_tok_s=res.tokens_per_s, launches=counts,
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               k4_device_ms=k4.get("ms_per_step"), k4_launches_profiled=k4.get("launches_per_step"),
+               prefill_device_ms=prof.get("device_ms_per_step"),
+               logits_err=lv["max_abs_err"], logits_tol=lv["tol"],
+               logits_top2_gap=lv["top2_gap"])
+    emit("f32_full_width", **row)
+    del engine, params
     torch.cuda.empty_cache()
     return dict(runs=runs, total=total, row=row)
 
@@ -1695,8 +1803,10 @@ def megakernel_full_width(torch, params, cfg):
 # the serving pick as `cli_case`
 CLI_CASES = {"flash_decode_attention": dict(cache="f32", pos=1000),
              "flash_gqa_attention": dict(T=512, cache="f32", q="bf16")}
-# further cases reported beside the pick: K4's f32-q body, K1 at prefill rows
-EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q="f32")},
+# further cases reported beside the pick: K4 with f32 q, K1 at prefill rows
+EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q="f32"),
+                                       "f32_q_bf16_cache_case": dict(T=512, cache="bf16",
+                                                                     q="f32")},
                "qmatmul": {"prefill_case": dict(weight="w13", kind="q4_0", rows=512),
                            "verify_window_case": dict(weight="w13", kind="q4_0", rows=5)},
                "paged_flash_decode_attention": {"batch1_case": dict(pool="bf16", B=1)},
@@ -1713,7 +1823,7 @@ KERNELS = [
     ("flash_decode_fused", "tpu_llm_torch/csrc/flash_attention.cu",
      "tpu_llm/ops/flash_attention.py:801", dict(pos=1000)),
     ("flash_gqa_attention", "tpu_llm_torch/csrc/flash_attention.cu",
-     "tpu_llm/ops/flash_attention.py:51", dict(T=512, cache="bf16")),
+     "tpu_llm/ops/flash_attention.py:51", dict(T=512, cache="bf16", q="bf16")),
     ("paged_flash_decode_attention", "tpu_llm_torch/csrc/paged_attention.cu",
      "tpu_llm/ops/flash_attention.py:264", dict(pool="bf16", B=8)),
     ("paged_flash_decode_q", "tpu_llm_torch/csrc/paged_attention.cu",
@@ -1763,8 +1873,9 @@ def main() -> int:
     mk = megakernel_full_width(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
+    f32 = f32_full_width(torch)
     kq = kquant_full_width(torch)
-    phases = (fw, sc, sv, mk, kq)
+    phases = (fw, sc, sv, mk, f32, kq)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     def case(name, pick):
@@ -1778,6 +1889,7 @@ def main() -> int:
             "launches": total[name],
             "max_abs_err": rep["max_abs_err"],
             "max_abs_err_all_cases": max(c["max_abs_err"] for c in cases[name]),
+            "n_diff": rep["n_diff"], "n_out": rep["n_out"],
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "case": pick,
@@ -1797,8 +1909,8 @@ def main() -> int:
         for key, pick_x in extra.items():
             c = case(name, pick_x)
             out[-1][key] = dict(
-                {k: c[k] for k in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", *SPLIT_KEYS) if k in c},
+                {k: c[k] for k in ("max_abs_err", "n_diff", "n_out", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", *SPLIT_KEYS) if k in c},
                 ms=c["kernel_ms"], case=pick_x)
     print(smi_line)
     print(json.dumps({"kernels": out}))

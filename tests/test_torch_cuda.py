@@ -104,7 +104,8 @@ def test_decode_kernels_match_plain(gen, D, H, Hkv, qdt, cdt):
 
 
 _DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-                (torch.bfloat16, torch.bfloat16)]
+                (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)]
+_DTYPE_IDS = ["f32", "bf16q", "bf16", "f32q_bf16"]
 
 
 def _edge_positions(S, rows):
@@ -115,7 +116,7 @@ def _edge_positions(S, rows):
     return sorted(p for p in pos if 0 <= p < S)
 
 
-@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=["f32", "bf16q", "bf16"])
+@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("B,S,case", [(8, 1024, "ragged"), (1, 2048, "edges"),
                                       (3, 1000, "edges"), (2, 64, "edges"),
                                       (1, 130, "edges")])
@@ -170,7 +171,7 @@ def test_decode_split_kernel_replays_in_a_graph(gen):
     assert FA._split_counters[q.device].count_nonzero().item() == 0
 
 
-@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=["f32", "bf16q", "bf16"])
+@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("B,S", [(1, 2048), (3, 1000), (2, 64), (1, 130), (1, 1024)])
 @pytest.mark.parametrize("D,H,Hkv", [(64, 32, 4), (128, 8, 2), (16, 6, 2)])
 def test_fused_split_kernel_matches_plain(gen, qdt, cdt, B, S, D, H, Hkv):
@@ -241,14 +242,23 @@ def test_fused_split_kernel_replays_in_a_graph(gen):
                                         (130, 200, 70), (1, 5, 4), (95, 129, 34),
                                         (300, 1000, 511), (64, 130, 66), (200, 150, 0),
                                         (513, 1024, 0)])
-@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=["f32", "bf16q", "bf16"])
+@pytest.mark.parametrize("qdt,cdt", _DTYPE_PAIRS, ids=_DTYPE_IDS)
 def test_prefill_kernel_matches_plain(gen, D, H, Hkv, T, S, offset, qdt, cdt):
+    """K4 on tensor cores for every (q, cache) dtype pair: against the twin
+    and, with an f32 operand (three bf16 parts), against the products the
+    kernel keeps (flash_gqa_attention_split_plain), at f32's 1e-4 where q
+    is f32."""
     B = 2
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(qdt)
     kc = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(cdt)
     vc = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(cdt)
-    _close(FA.flash_gqa_attention(q, kc, vc, offset),
-           FA.flash_gqa_attention_plain(q, kc, vc, offset), qdt == torch.bfloat16)
+    launches = FA.flash_gqa_attention.launches
+    got = FA.flash_gqa_attention(q, kc, vc, offset)
+    assert FA.flash_gqa_attention.launches == launches + 1 and got.dtype == qdt
+    bf16 = qdt == torch.bfloat16
+    _close(got, FA.flash_gqa_attention_plain(q, kc, vc, offset), bf16)
+    if qdt == torch.float32 or cdt == torch.float32:
+        _close(got, FA.flash_gqa_attention_split_plain(q, kc, vc, offset), bf16)
 
 
 def test_attention_kernels_refuse_unsupported_head_dim(gen):
@@ -634,24 +644,68 @@ def test_qmatmul_refuses_scan_slice_planes(gen):
     assert qmatmul.launches == launches
 
 
+@pytest.mark.parametrize("planes", ["f32", "bf16", "f32_bf16"])
 @pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
 @pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8])
-def test_ffn_fused_kernel_matches_plain(gen, kind, rows):
-    """K7 at TinyLlama width (E 2048, F 5632) against its twin; bf16
-    numerics, tolerance 2e-2 * max|plain|."""
+def test_ffn_fused_kernel_matches_plain(gen, kind, rows, planes):
+    """K7 at TinyLlama width (E 2048, F 5632), w13 / w2 scale planes f32,
+    bf16 or one of each, against its twin and against the kernel's order of
+    sums (ffn_fused_split_plain over the launch's own plan); bf16 numerics,
+    tolerance 2e-2 * max|plain|. A second call gives the same bits: the
+    tile counters and the barrier's count are left at zero (its generation
+    word only advances)."""
     from chip_smoke import random_qtensor
-    from tpu_llm_torch.quant.ffn import ffn_fused, ffn_fused_plain
+    from tpu_llm_torch.quant import ffn as FF
+
+    E, F = 2048, 5632
+    p13, p2 = {"f32": ("f32", "f32"), "bf16": ("bf16", "bf16"),
+               "f32_bf16": ("f32", "bf16")}[planes]
+    w13 = random_qtensor(torch, gen, kind, E, 2 * F, p13)
+    w2 = random_qtensor(torch, gen, kind, F, E, p2)
+    x = torch.randn((1, rows, E), generator=gen, device="cuda").bfloat16()
+    launches = FF.ffn_fused.launches
+    got = FF.ffn_fused(x, w13, w2)
+    assert FF.ffn_fused.launches == launches + 1 and tuple(got.shape) == (1, rows, E)
+    _close(got, FF.ffn_fused_plain(x, w13, w2), True)
+    ctas = FF._coresident[FF._KINDS[kind]]
+    assert FF.ffn_plan(E, F, ctas).grid <= ctas
+    _close(got, FF.ffn_fused_split_plain(x, w13, w2, ctas), True)
+    again = FF.ffn_fused(x, w13, w2)
+    assert torch.equal(again, got)
+    assert _ffn_counters_at_rest(FF, x.device)
+
+
+def _ffn_counters_at_rest(FF, device) -> bool:
+    """K7's barrier count and tile counters at 0 (word 1, the barrier's
+    generation, advances by one a launch and is never reset)."""
+    c = FF._counters[device][-1]
+    return c[0].item() == 0 and c[2:].count_nonzero().item() == 0
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+def test_ffn_fused_replays_in_a_graph(gen, kind):
+    """K7 (a cooperative launch) captured in a CUDA graph and replayed
+    twice on new x: each replay equals the eager call, and the tile
+    counters and the barrier's count are back at zero after each."""
+    from chip_smoke import random_qtensor
+    from tpu_llm_torch.quant import ffn as FF
 
     E, F = 2048, 5632
     w13 = random_qtensor(torch, gen, kind, E, 2 * F, "f32")
-    w2 = random_qtensor(torch, gen, kind, F, E, "bf16")
-    x = torch.randn((1, rows, E), generator=gen, device="cuda").bfloat16()
-    launches = ffn_fused.launches
-    got = ffn_fused(x, w13, w2)
-    assert ffn_fused.launches == launches + 1 and tuple(got.shape) == (1, rows, E)
-    _close(got, ffn_fused_plain(x, w13, w2), True)
-    again = ffn_fused(x, w13, w2)                 # the barrier words are reset
-    assert torch.equal(again, got)
+    w2 = random_qtensor(torch, gen, kind, F, E, "f32")
+    x = torch.randn((1, 1, E), generator=gen, device="cuda").bfloat16()
+    FF.ffn_fused(x, w13, w2)                         # builds; makes the counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = FF.ffn_fused(x, w13, w2)
+    for _ in range(2):
+        x.copy_(torch.randn((1, 1, E), generator=gen, device="cuda"))
+        graph.replay()
+        want = FF.ffn_fused(x, w13, w2)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert _ffn_counters_at_rest(FF, x.device)
 
 
 def test_ffn_fused_refuses(gen):

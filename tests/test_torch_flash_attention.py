@@ -14,6 +14,7 @@ from tpu_llm.ops import attention as jatt
 from tpu_llm.ops import flash_attention as jfa
 from tpu_llm_torch.ops import attention as tatt
 from tpu_llm_torch.ops import flash_attention as tfa
+from tpu_llm_torch.quant.qmatmul import split3_bf16
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -257,3 +258,55 @@ def test_fused_split_plain_matches_pallas(where, cache):
     assert torch.equal(tk3, tk) and torch.equal(tv3, tv)
     err = (got.float() - twin.float()).abs().max().item()
     assert err <= (2e-5 if cache == "f32" else 2e-2) * twin.float().abs().max().item()
+
+
+# -- K4 on tensor cores: f32 operands as three bf16 parts -------------------------
+
+def test_split3_bf16_is_exact():
+    """hi + mid + lo == x exactly in f32, each part a bf16 value, over
+    random f32 values across exponents -100..100, both signs, and zero
+    (csrc/common.cuh split3_bf16, what K1 and K4 split f32 operands with)."""
+    rng = np.random.default_rng(8)
+    n = 1 << 14
+    mant = rng.uniform(1.0, 2.0, n).astype(np.float32)
+    exp = rng.integers(-100, 101, n)
+    sign = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    x = (sign * np.ldexp(mant, exp)).astype(np.float32)
+    x[:16] = 0.0
+    x[16:32] = -0.0
+    xt = torch.from_numpy(x)
+    parts = split3_bf16(xt)
+    for p in parts:
+        assert p.dtype == torch.float32
+        assert torch.equal(p, p.bfloat16().float())
+    hi, mid, lo = parts
+    assert torch.equal(hi + mid + lo, xt)
+    assert torch.equal((hi + mid) + lo, xt)        # the order the kernels sum in
+    assert torch.equal(hi, xt.bfloat16().float())
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 23])
+def test_prefill_split_plain_matches_plain_and_pallas(cache, offset):
+    """K4's arithmetic for f32 q (flash_gqa_attention_split_plain: q, an
+    f32 cache and P in three bf16 parts, the products with i + j <= 2)
+    against the plain twin at 1e-5 * max|plain| and against the Pallas
+    prefill kernel in interpret mode (as test_prefill_plain_matches_pallas
+    runs it; a bf16 cache reaches it as f32 planes of the same values), T
+    and S off the kernel's 64-row tiles."""
+    rng = np.random.default_rng(40 + offset)
+    B, T, S, H, Hkv, D = 1, 48, 96, 4, 2, 16
+    q, k, v = _rand(rng, B, T, H, D), _rand(rng, B, S, Hkv, D), _rand(rng, B, S, Hkv, D)
+    tk, tv = _t(k), _t(v)
+    if cache == "bf16":
+        tk, tv = tk.bfloat16(), tv.bfloat16()
+        k, v = tk.float().numpy(), tv.float().numpy()
+    got = tfa.flash_gqa_attention_split_plain(_t(q), tk, tv, offset)
+    assert got.dtype == torch.float32
+    plain = tfa.flash_gqa_attention_plain(_t(q), tk, tv, offset)
+    err = (got - plain).abs().max().item()
+    assert err <= 1e-5 * plain.abs().max().item(), err
+    want = jfa.flash_gqa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.int32(offset), block_q=16, block_k=16,
+                                   interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -30,9 +30,10 @@
 // v_cur and stores it at row pos. What bounds K3 is what bounds K2: the
 // cache bytes of rows < pos plus the one row it stores, over 3.35 TB/s.
 //
-// K4, flash_prefill_kernel (bf16 q): tensor cores. One CTA of 4 warps per
-// (64-query tile, query head, b); each warp owns 16 query rows, its Q
-// fragments in registers for the whole CTA. GQA: one CTA per query head,
+// K4, flash_prefill_kernel<QT, CT, D>: tensor cores for every (q, cache)
+// dtype pair. One CTA of 4 warps per (64-query tile, query head, b); each
+// warp owns 16 query rows, its Q fragments in registers for the whole CTA.
+// GQA: one CTA per query head,
 // not one per kv head: the G CTAs of a kv head read the same K/V tiles,
 // which L2 serves (a kv head's K and V of 1024 rows are 256 KB), and the
 // grid stays H * T / 64 CTAs with 16 query rows a warp. K and V come in
@@ -41,26 +42,30 @@
 // O += P V are mma.sync m16n8k16 bf16 products with f32 accumulators; the
 // online softmax runs on the accumulator fragments in registers (row max
 // and row sum over the quad of threads that share a row, by shuffles).
-// P is packed to bf16 as the A operand of the PV product: with a bf16
+// P is packed to bf16 as the A operand of the PV product: with bf16 q and
 // cache that is ROUND_P's rounding. A bf16 cache is copied with cp.async
 // into two stages (the next tile's copy overlaps this tile's math). An f32
 // cache is never rounded to bf16: its tile is copied raw (cp.async, one
 // f32 stage, the next copy overlapping this tile's math) and split, on
 // its way to the bf16 tiles, into x = hi + mid + lo, three bf16 parts that
-// hold all 24 bits; S = Q Kh + Q Km + Q Kl (q is bf16, exact), and the
-// unrounded P, split the same way, gives O += every product down to 2^-16
-// of the leading one (Ph Vh, Pm Vh, Pl Vh, Ph Vm, Pm Vm, Ph Vl), so the
-// products keep f32's precision and only the order of the f32 sums
-// differs from the f32 twin's. Tiles wholly above the causal
+// hold all 24 bits. f32 q is split the same way, once a CTA, straight
+// from device memory into its A fragments: hi stays in registers, mid and
+// lo go to a shared slot each thread owns (16 bytes a fragment, lanes
+// adjacent: conflict-free, read back by the same thread, no barrier), so
+// the registers a warp holds for Q do not triple. With parts i of one
+// operand and j of the other, each product keeps i + j <= 2: every product
+// down to 2^-16 of the leading one (S over an f32 cache with f32 q: qh kh,
+// qm kh, ql kh, qh km, qm km, qh kl; with bf16 q: q kh, q km, q kl; over a
+// bf16 cache with f32 q: qh k, qm k, ql k). P is unrounded unless q and
+// cache are both bf16 and is then split too (O over an f32 cache: Ph Vh,
+// Pm Vh, Pl Vh, Ph Vm, Pm Vm, Ph Vl; over a bf16 cache: Ph V, Pm V, Pl V),
+// so the products keep f32's precision and only the order of the f32 sums
+// differs from the f32 twin's; the output is stored in q's dtype. Tiles
+// wholly above the causal
 // diagonal are neither copied nor computed (a CTA stops at its deepest
 // query; a warp skips tiles above its own rows); only diagonal tiles are
 // masked elementwise; rows past the deepest visible key are zero-filled,
 // never read. CTAs run deepest tile first.
-//
-// K4, flash_prefill_simt_kernel (f32 q: --dtype f32, the K-quant logits
-// checks): CUDA cores in f32, so the f32 tolerance holds. One CTA of 256
-// threads per (b, h, 64-query tile); 64-row K/V tiles converted to f32 in
-// shared memory, rows padded to D + 1 floats; scalar dot products.
 
 #include <type_traits>
 
@@ -73,20 +78,13 @@ using tlt::NEG_INF;
 using tlt::cp_async16;
 using tlt::cp_async_commit;
 using tlt::cp_async_wait;
-using tlt::from_f32;
 using tlt::ldsm_x4;
 using tlt::ldsm_x4_t;
 using tlt::mma_bf16;
 using tlt::pack_bf16;
 using tlt::split3_bf16;
-using tlt::round_bf16;
-using tlt::to_f32;
-using tlt::warp_max;
-using tlt::warp_sum;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int KT = 64;   // keys per tile
 constexpr int BQ = 64;   // queries per prefill tile
 
@@ -96,36 +94,52 @@ void allow_smem(K kernel, size_t bytes) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// -- K4, bf16 q: causal prefill on tensor cores -------------------------------
+// -- K4: causal prefill on tensor cores ---------------------------------------
 
 constexpr int kPfThreads = 128;   // 4 warps x 16 query rows = BQ
 
-template <typename CT, int D>
+template <typename QT, typename CT, int D>
 struct PrefillSmem {
+  static constexpr bool F32Q = std::is_same<QT, float>::value;
   static constexpr bool F32C = std::is_same<CT, float>::value;
   static constexpr int LD = D + 8;             // bf16 row, padded by 16 bytes
   static constexpr int TILE = KT * LD;         // one bf16 K or V tile
   // bf16 cache: [stage][K|V] tiles; f32 cache: [K|V][hi|mid|lo] tiles
   static constexpr int TILES = F32C ? 6 : 4;
-  // q tile, the bf16 tiles and, for an f32 cache, one raw f32 [K|V] stage
+  // bf16 q: the q tile; f32 q: each thread's mid and lo A fragments
+  static constexpr size_t Q_BYTES =
+      F32Q ? 2 * (D / 16) * kPfThreads * sizeof(uint4) : sizeof(bf16) * BQ * LD;
+  // the q region, the bf16 tiles and, for an f32 cache, one raw f32 [K|V] stage
   static constexpr size_t BYTES =
-      sizeof(bf16) * (BQ * LD + TILES * TILE) + (F32C ? sizeof(float) * 2 * KT * D : 0);
+      Q_BYTES + sizeof(bf16) * TILES * TILE + (F32C ? sizeof(float) * 2 * KT * D : 0);
 };
 
-template <typename CT, int D>
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename QT, typename CT, int D>
 __global__ void __launch_bounds__(kPfThreads)
-flash_prefill_kernel(const bf16* __restrict__ q, const CT* __restrict__ kc,
-                     const CT* __restrict__ vc, bf16* __restrict__ out, int T, int H,
+flash_prefill_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
+                     const CT* __restrict__ vc, QT* __restrict__ out, int T, int H,
                      int Hkv, int S, int offset, float sm_scale) {
-  using SM = PrefillSmem<CT, D>;
-  constexpr bool F32C = SM::F32C;
+  using SM = PrefillSmem<QT, CT, D>;
+  constexpr bool F32Q = SM::F32Q, F32C = SM::F32C;
   constexpr int LD = SM::LD, TILE = SM::TILE;
   constexpr int NK = D / 16;   // k-steps of S = Q K^T
   constexpr int ND = D / 8;    // n-tiles of O
+  // bf16 parts of q, of the cache rows and of P (P is rounded to one only
+  // when q and cache are both bf16)
+  constexpr int QP = F32Q ? 3 : 1, CP = F32C ? 3 : 1, PP = F32Q || F32C ? 3 : 1;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* t_s = q_s + BQ * LD;                                // SM::TILES tiles
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);            // bf16 q
+  uint4* qp_s = reinterpret_cast<uint4*>(smem_raw);         // f32 q: [mid|lo][kk][thread]
+  bf16* t_s = reinterpret_cast<bf16*>(smem_raw + SM::Q_BYTES);       // SM::TILES tiles
   float* raw_s = reinterpret_cast<float*>(t_s + SM::TILES * TILE);   // f32 cache: K, V
 
   const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // deepest tiles first
@@ -141,12 +155,14 @@ flash_prefill_kernel(const bf16* __restrict__ q, const CT* __restrict__ kc,
   const bool warp_live = wt0 < T;
   const int warp_last = offset + min(wt0 + 15, T - 1);   // its deepest query position
 
-  // q tile (zero rows past T)
-  for (int c = tid; c < BQ * (D / 8); c += kPfThreads) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    const bool ok = t0 + r < T;
-    const int t = ok ? t0 + r : 0;
-    cp_async16(q_s + r * LD + col, q + (((int64_t)b * T + t) * H + h) * D + col, ok);
+  // bf16 q: the q tile (zero rows past T)
+  if constexpr (!F32Q) {
+    for (int c = tid; c < BQ * (D / 8); c += kPfThreads) {
+      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+      const bool ok = t0 + r < T;
+      const int t = ok ? t0 + r : 0;
+      cp_async16(q_s + r * LD + col, q + (((int64_t)b * T + t) * H + h) * D + col, ok);
+    }
   }
   const int64_t row0 = (int64_t)b * S;
   // bf16 cache: tile j into stage j & 1; f32: into the raw stage
@@ -189,6 +205,26 @@ flash_prefill_kernel(const bf16* __restrict__ q, const CT* __restrict__ kc,
   cp_async_commit();
 
   uint32_t qa[NK][4];
+  if constexpr (F32Q) {
+    // this thread's A fragments of its warp's 16 rows (zero past T): a[i]
+    // holds row g8 (+ 8 if i is odd), columns 2 tig, 2 tig + 1 (+ 8 if
+    // i >= 2) of k-step kk, split into hi (registers), mid and lo (slots)
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t m[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = wt0 + g8 + (i & 1) * 8;
+        const int d = kk * 16 + (i >> 1) * 8 + 2 * tig;
+        const float2 v = t < T ? __ldg(reinterpret_cast<const float2*>(
+                                     q + (((int64_t)b * T + t) * H + h) * D + d))
+                               : make_float2(0.f, 0.f);
+        split3_bf16(v.x, v.y, qa[kk][i], m[i], l[i]);
+      }
+      qp_s[kk * kPfThreads + tid] = make_uint4(m[0], m[1], m[2], m[3]);
+      qp_s[(NK + kk) * kPfThreads + tid] = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+  }
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -214,33 +250,45 @@ flash_prefill_kernel(const bf16* __restrict__ q, const CT* __restrict__ kc,
       kh = t_s + (j & 1) * 2 * TILE;
       vh = kh + TILE;
     }
-    if (j == 0) {
+    if constexpr (!F32Q) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < NK; ++kk)
-        ldsm_x4(qa[kk], q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < NK; ++kk)
+          ldsm_x4(qa[kk], q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      }
     }
     const int s0 = j * KT;
     if (warp_live && s0 <= warp_last) {
-      // S = Q K^T over the tile's 64 keys: 8 n-tiles of 8 keys
+      // S = Q K^T over the tile's 64 keys: 8 n-tiles of 8 keys; the
+      // products of q part i and K part j with i + j <= 2
       float s[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int krow = np * 16 + (lane >> 4) * 8 + (lane & 7);
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t qm[4] = {}, ql[4] = {};
+        if constexpr (F32Q) {
+          const uint4 m = qp_s[kk * kPfThreads + tid], l = qp_s[(NK + kk) * kPfThreads + tid];
+          qm[0] = m.x, qm[1] = m.y, qm[2] = m.z, qm[3] = m.w;
+          ql[0] = l.x, ql[1] = l.y, ql[2] = l.z, ql[3] = l.w;
+        }
+        const int kcol = kk * 16 + ((lane >> 3) & 1) * 8;
 #pragma unroll
-        for (int kk = 0; kk < NK; ++kk) {
-          const int kcol = kk * 16 + ((lane >> 3) & 1) * 8;
-          uint32_t r[4];
-          ldsm_x4(r, kh + krow * LD + kcol);
-          mma_bf16(s[2 * np], qa[kk], r[0], r[1]);
-          mma_bf16(s[2 * np + 1], qa[kk], r[2], r[3]);
-          if constexpr (F32C) {
+        for (int np = 0; np < 4; ++np) {
+          const int krow = np * 16 + (lane >> 4) * 8 + (lane & 7);
 #pragma unroll
-            for (int part = 1; part < 3; ++part) {   // K mid, K lo
-              ldsm_x4(r, kh + part * TILE + krow * LD + kcol);
-              mma_bf16(s[2 * np], qa[kk], r[0], r[1]);
-              mma_bf16(s[2 * np + 1], qa[kk], r[2], r[3]);
+          for (int cp = 0; cp < CP; ++cp) {   // K hi, mid, lo
+            uint32_t r[4];
+            ldsm_x4(r, kh + cp * TILE + krow * LD + kcol);
+            mma_bf16(s[2 * np], qa[kk], r[0], r[1]);
+            mma_bf16(s[2 * np + 1], qa[kk], r[2], r[3]);
+            if (QP == 3 && cp <= 1) {   // q mid
+              mma_bf16(s[2 * np], qm, r[0], r[1]);
+              mma_bf16(s[2 * np + 1], qm, r[2], r[3]);
+            }
+            if (QP == 3 && cp == 0) {   // q lo
+              mma_bf16(s[2 * np], ql, r[0], r[1]);
+              mma_bf16(s[2 * np + 1], ql, r[2], r[3]);
             }
           }
         }
@@ -295,17 +343,18 @@ flash_prefill_kernel(const bf16* __restrict__ q, const CT* __restrict__ kc,
         o[n][2] *= al1;
         o[n][3] *= al1;
       }
-      // O += P V: 4 k-steps of 16 keys; P from the S fragments
+      // O += P V: 4 k-steps of 16 keys; P from the S fragments, the
+      // products of P part i and V part j with i + j <= 2
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        // the A operand: p packed to bf16 (ROUND_P's rounding with a bf16
-        // cache); with an f32 cache also its mid and lo parts
-        uint32_t pa[4], pm[4], pl[4];
+        // the A operand: p packed to bf16 (ROUND_P's rounding with bf16 q
+        // and cache), else split into hi, mid and lo
+        uint32_t pa[4], pm[4] = {}, pl[4] = {};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float a = s[2 * kk + (i >> 1)][2 * (i & 1)];
           const float b = s[2 * kk + (i >> 1)][2 * (i & 1) + 1];
-          if constexpr (F32C)
+          if constexpr (PP == 3)
             split3_bf16(a, b, pa[i], pm[i], pl[i]);
           else
             pa[i] = pack_bf16(a, b);
@@ -314,25 +363,20 @@ flash_prefill_kernel(const bf16* __restrict__ q, const CT* __restrict__ kc,
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           const int vcol = dp * 16 + (lane >> 4) * 8;
-          uint32_t r[4];
-          ldsm_x4_t(r, vh + vrow * LD + vcol);
-          mma_bf16(o[2 * dp], pa, r[0], r[1]);
-          mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
-          if constexpr (F32C) {
-            // every product down to 2^-16 of the leading one:
-            // Ph Vh (above) + Pm Vh + Pl Vh + Ph Vm + Pm Vm + Ph Vl
-            mma_bf16(o[2 * dp], pm, r[0], r[1]);
-            mma_bf16(o[2 * dp + 1], pm, r[2], r[3]);
-            mma_bf16(o[2 * dp], pl, r[0], r[1]);
-            mma_bf16(o[2 * dp + 1], pl, r[2], r[3]);
-            ldsm_x4_t(r, vh + TILE + vrow * LD + vcol);   // V mid
+#pragma unroll
+          for (int cp = 0; cp < CP; ++cp) {   // V hi, mid, lo
+            uint32_t r[4];
+            ldsm_x4_t(r, vh + cp * TILE + vrow * LD + vcol);
             mma_bf16(o[2 * dp], pa, r[0], r[1]);
             mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
-            mma_bf16(o[2 * dp], pm, r[0], r[1]);
-            mma_bf16(o[2 * dp + 1], pm, r[2], r[3]);
-            ldsm_x4_t(r, vh + 2 * TILE + vrow * LD + vcol);   // V lo
-            mma_bf16(o[2 * dp], pa, r[0], r[1]);
-            mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
+            if (PP == 3 && cp <= 1) {   // P mid
+              mma_bf16(o[2 * dp], pm, r[0], r[1]);
+              mma_bf16(o[2 * dp + 1], pm, r[2], r[3]);
+            }
+            if (PP == 3 && cp == 0) {   // P lo
+              mma_bf16(o[2 * dp], pl, r[0], r[1]);
+              mma_bf16(o[2 * dp + 1], pl, r[2], r[3]);
+            }
           }
         }
       }
@@ -353,168 +397,39 @@ flash_prefill_kernel(const bf16* __restrict__ q, const CT* __restrict__ kc,
   for (int n = 0; n < ND; ++n) {
     const int d = n * 8 + 2 * tig;
     if (ta < T)
-      *reinterpret_cast<uint32_t*>(out + (((int64_t)b * T + ta) * H + h) * D + d) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+      store2(out + (((int64_t)b * T + ta) * H + h) * D + d, o[n][0] * inv0, o[n][1] * inv0);
     if (ta + 8 < T)
-      *reinterpret_cast<uint32_t*>(out + (((int64_t)b * T + ta + 8) * H + h) * D + d) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
-  }
-}
-
-// -- K4, f32 q: causal prefill on CUDA cores ----------------------------------
-
-size_t prefill_simt_smem(int D) {
-  return sizeof(float) * (3 * BQ * (D + 1) + BQ * (KT + 1) + 3 * BQ);
-}
-
-template <typename CT>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_simt_kernel(const float* __restrict__ q, const CT* __restrict__ kc,
-                          const CT* __restrict__ vc, float* __restrict__ out, int T, int H,
-                          int Hkv, int D, int S, int offset, float sm_scale) {
-  extern __shared__ float smem[];
-  const int t0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int DP = D + 1, SP = KT + 1;
-  float* q_s = smem;                   // BQ x DP
-  float* k_s = q_s + BQ * DP;          // KT x DP
-  float* v_s = k_s + KT * DP;          // KT x DP
-  float* s_s = v_s + KT * DP;          // BQ x SP
-  float* m_s = s_s + BQ * SP;          // BQ
-  float* l_s = m_s + BQ;               // BQ
-  float* alpha_s = l_s + BQ;           // BQ
-  // the f32 accumulator: BQ x D in registers, element i = tid + j * kThreads
-  constexpr int kAcc = BQ * 128 / kThreads;
-  float acc[kAcc];
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
-
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int t = i / D, d = i - t * D;
-    q_s[t * DP + d] = t0 + t < T ? q[(((int64_t)b * T + t0 + t) * H + h) * D + d] : 0.f;
-  }
-  for (int t = tid; t < BQ; t += kThreads) {
-    m_s[t] = NEG_INF;
-    l_s[t] = 0.f;
-  }
-  __syncthreads();
-
-  const int q_last = offset + min(t0 + BQ, T) - 1;   // deepest query position
-  const int kv_end = min(S, q_last + 1);             // tiles above it are skipped
-  for (int s0 = 0; s0 < kv_end; s0 += KT) {
-    const int nk = min(KT, kv_end - s0);
-    for (int i = tid; i < KT * D; i += kThreads) {
-      const int s = i / D, d = i - s * D;
-      float kv = 0.f, vv = 0.f;
-      if (s < nk) {
-        const int64_t off = (((int64_t)b * S + s0 + s) * Hkv + hk) * D + d;
-        kv = to_f32(kc[off]);
-        vv = to_f32(vc[off]);
-      }
-      k_s[s * DP + d] = kv;
-      v_s[s * DP + d] = vv;
-    }
-    __syncthreads();
-    for (int i = tid; i < BQ * KT; i += kThreads) {
-      const int t = i / KT, s = i - t * KT;
-      float sc = NEG_INF;
-      if (s < nk && s0 + s <= offset + t0 + t) {
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(q_s[t * DP + d], k_s[s * DP + d], dot);
-        sc = dot * sm_scale;
-      }
-      s_s[t * SP + s] = sc;
-    }
-    __syncthreads();
-    for (int t = warp; t < BQ; t += kWarps) {
-      float mx = NEG_INF;
-      for (int s = lane; s < KT; s += 32) mx = fmaxf(mx, s_s[t * SP + s]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[t];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int s = lane; s < KT; s += 32) {
-        const float p = expf(s_s[t * SP + s] - m_new);
-        sum += p;
-        s_s[t * SP + s] = p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        m_s[t] = m_new;
-        l_s[t] = alpha * l_s[t] + sum;
-        alpha_s[t] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < BQ * D) {
-        const int t = i / D, d = i - t * D;
-        float a = 0.f;
-        for (int s = 0; s < nk; ++s) a = fmaf(s_s[t * SP + s], v_s[s * DP + d], a);
-        acc[j] = acc[j] * alpha_s[t] + a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) {
-    const int i = tid + j * kThreads;
-    if (i < BQ * D) {
-      const int t = i / D, d = i - t * D;
-      if (t0 + t < T) {
-        const float l = l_s[t];
-        const float inv = l == 0.f ? 1.f : 1.f / l;
-        out[(((int64_t)b * T + t0 + t) * H + h) * D + d] = acc[j] * inv;
-      }
-    }
+      store2(out + (((int64_t)b * T + ta + 8) * H + h) * D + d, o[n][2] * inv1,
+             o[n][3] * inv1);
   }
 }
 
 // -- launches -----------------------------------------------------------------
 
-template <typename CT, int D>
-void launch_prefill_tc(const void* q, const void* kc, const void* vc, void* out, int B, int T,
-                       int H, int Hkv, int S, int offset, float sm_scale, cudaStream_t st) {
-  auto kernel = flash_prefill_kernel<CT, D>;
-  const size_t smem = PrefillSmem<CT, D>::BYTES;
+template <typename QT, typename CT, int D>
+void launch_prefill(const void* q, const void* kc, const void* vc, void* out, int B, int T,
+                    int H, int Hkv, int S, int offset, float sm_scale, cudaStream_t st) {
+  auto kernel = flash_prefill_kernel<QT, CT, D>;
+  const size_t smem = PrefillSmem<QT, CT, D>::BYTES;
   allow_smem(kernel, smem);
   kernel<<<dim3((T + BQ - 1) / BQ, H, B), kPfThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const CT*>(kc), static_cast<const CT*>(vc),
-      static_cast<bf16*>(out), T, H, Hkv, S, offset, sm_scale);
+      static_cast<const QT*>(q), static_cast<const CT*>(kc), static_cast<const CT*>(vc),
+      static_cast<QT*>(out), T, H, Hkv, S, offset, sm_scale);
 }
 
-template <typename CT>
-void prefill_tc_dispatch(const void* q, const void* kc, const void* vc, void* out, int B,
-                         int T, int H, int Hkv, int D, int S, int offset, float sm_scale,
-                         cudaStream_t st) {
+template <typename QT, typename CT>
+void prefill_dispatch(const void* q, const void* kc, const void* vc, void* out, int B, int T,
+                      int H, int Hkv, int D, int S, int offset, float sm_scale,
+                      cudaStream_t st) {
 #define TLT_PF(DD) \
   case DD:         \
-    launch_prefill_tc<CT, DD>(q, kc, vc, out, B, T, H, Hkv, S, offset, sm_scale, st); break
+    launch_prefill<QT, CT, DD>(q, kc, vc, out, B, T, H, Hkv, S, offset, sm_scale, st); break
   switch (D) {
     TLT_PF(16); TLT_PF(32); TLT_PF(48); TLT_PF(64);
     TLT_PF(80); TLT_PF(96); TLT_PF(112); TLT_PF(128);
     default: break;   // the wrapper admits only these
   }
 #undef TLT_PF
-}
-
-template <typename CT>
-void launch_prefill_simt(const void* q, const void* kc, const void* vc, void* out, int B,
-                         int T, int H, int Hkv, int D, int S, int offset, float sm_scale,
-                         cudaStream_t st) {
-  auto kernel = flash_prefill_simt_kernel<CT>;
-  const size_t smem = prefill_simt_smem(D);
-  allow_smem(kernel, smem);
-  kernel<<<dim3((T + BQ - 1) / BQ, H, B), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const CT*>(kc), static_cast<const CT*>(vc),
-      static_cast<float*>(out), T, H, Hkv, D, S, offset, sm_scale);
 }
 
 }  // namespace
@@ -553,18 +468,21 @@ TLT_API int tlt_flash_decode(const void* q, int q_bf16, void* kc, void* vc, int 
 }
 
 // K4: q (B, T, H, D); caches (B, S, Hkv, D); out (B, T, H, D) in q's dtype.
-// bf16 q: tensor cores (D a multiple of 16 up to 128); f32 q: CUDA cores.
+// Every (q, cache) dtype pair on tensor cores; D a multiple of 16 up to 128.
 TLT_API int tlt_flash_prefill(const void* q, int q_bf16, const void* kc, const void* vc,
                               int cache_bf16, void* out, int B, int T, int H, int Hkv,
                               int D, int S, int offset, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_PFD(QT, CT) \
+  prefill_dispatch<QT, CT>(q, kc, vc, out, B, T, H, Hkv, D, S, offset, sm_scale, st)
   if (q_bf16 && cache_bf16)
-    prefill_tc_dispatch<bf16>(q, kc, vc, out, B, T, H, Hkv, D, S, offset, sm_scale, st);
+    TLT_PFD(bf16, bf16);
   else if (q_bf16)
-    prefill_tc_dispatch<float>(q, kc, vc, out, B, T, H, Hkv, D, S, offset, sm_scale, st);
+    TLT_PFD(bf16, float);
   else if (cache_bf16)
-    launch_prefill_simt<bf16>(q, kc, vc, out, B, T, H, Hkv, D, S, offset, sm_scale, st);
+    TLT_PFD(float, bf16);
   else
-    launch_prefill_simt<float>(q, kc, vc, out, B, T, H, Hkv, D, S, offset, sm_scale, st);
+    TLT_PFD(float, float);
+#undef TLT_PFD
   return (int)cudaGetLastError();
 }

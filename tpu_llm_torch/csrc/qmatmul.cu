@@ -27,7 +27,8 @@
 // multiply-adds must stay well below that. At prefill rows (512 x w13):
 // 2 * rows * K * N operations over the bf16 tensor-core rate (989 TFLOP/s).
 //
-// Design, one body for every row count:
+// Design, one body for every row count (its tile, stage, unpacking, ring
+// and split merge in qmm_tile.cuh, shared with K7):
 // - every kind's value is a small integer (-128..127), exact in bf16, so
 //   the products run on the tensor cores: mma.sync m16n8k16, bf16 in, f32
 //   accumulate, x as the A operand (rows 1-16 pad one m16 tile: the tensor
@@ -66,15 +67,12 @@
 //   its counter: one launch a call, graph replays need no memset;
 // - ragged N or planes not on 16-byte boundaries take plain loads into the
 //   same stages, zero past N.
-#include <cuda_fp16.h>
-
 #include "common.cuh"
+#include "qmm_tile.cuh"
 
 namespace {
 
-using tlt::cp_async16;
-using tlt::cp_async_commit;
-using tlt::cp_async_wait;
+using namespace tlt::qmm;
 using tlt::ldsm_x4;
 using tlt::mma_bf16;
 using tlt::pack_bf16;
@@ -82,92 +80,10 @@ using tlt::round_bf16;
 using tlt::to_f32;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;             // 4 warps
-constexpr int kCols = 128;                // columns a CTA, 32 a warp
-constexpr int kRowB = kCols + 16;         // a staged byte row, padded
-// value planes: int8 values, nibble-packed, nibble-packed + qh plane
-enum Pack { kInt8 = 0, kNibble = 1, kNibbleQh = 2 };
-// scale / mins plane element types
-enum Plane { kF32 = 0, kBF16 = 1, kF16Bits = 2 };
-
-// one stage, a 32-row block of K: its value rows, qh rows, scale rows and
-// mins rows (a plane row holds 128 elements of up to 4 bytes), and the x
-// tile (RT rows x 32 k of raw XT, rows padded by 16 bytes)
-template <typename XT, int PACK, bool B16, int MT>
-struct Stage {
-  static constexpr int RT = 16 * MT;
-  static constexpr int WROWS = PACK == kInt8 ? 32 : 16;
-  static constexpr int QROWS = PACK == kNibbleQh ? 8 : 0;
-  static constexpr int SROWS = B16 ? 2 : 1;
-  static constexpr int XROWB = 32 * (int)sizeof(XT) + 16;
-  static constexpr int Q_OFF = WROWS * kRowB;
-  static constexpr int S_OFF = Q_OFF + QROWS * kRowB;
-  static constexpr int M_OFF = S_OFF + SROWS * kCols * 4;
-  static constexpr int X_OFF = M_OFF + SROWS * kCols * 4;
-  static constexpr int BYTES = X_OFF + RT * XROWB;
-  // stages in the ring: 7 blocks in flight at 1-16 rows (5 for int8
-  // values, so 4 CTAs fit an SM), 3 at prefill rows
-  static constexpr int N = MT == 1 ? (PACK == kInt8 ? 6 : 8) : 4;
-};
-
-constexpr int kPartLD = 40;   // a converted x part's row: 32 bf16, padded by 16 bytes
-
 template <typename XT, int PARTS, int PACK, bool B16, int MT>
 constexpr size_t smem_bytes() {
   using SG = Stage<XT, PACK, B16, MT>;
   return (size_t)SG::N * SG::BYTES + sizeof(bf16) * (PARTS == 3 ? 3 : 0) * SG::RT * kPartLD;
-}
-
-// d = a (16x16 bf16, row) * b (16x8 bf16, col), f32, from zero
-__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// one 16-bit plane element as f32: bf16 widens by a shift, f16 bits through
-// the hardware conversion (both exact)
-__device__ __forceinline__ float half_bits_to_f32(uint32_t h, int dtype) {
-  return dtype == kBF16 ? __uint_as_float(h << 16)
-                        : __half2float(__ushort_as_half((unsigned short)h));
-}
-
-// 8 consecutive elements of a staged scale / mins row as f32
-__device__ __forceinline__ void plane8(const unsigned char* row, int dtype, int col,
-                                       float (&v)[8]) {
-  if (dtype == kF32) {
-    const float4 a = *reinterpret_cast<const float4*>(row + col * 4);
-    const float4 b = *reinterpret_cast<const float4*>(row + col * 4 + 16);
-    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  } else {
-    const uint4 u = *reinterpret_cast<const uint4*>(row + col * 2);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = half_bits_to_f32(w[i] & 0xFFFFu, dtype);
-      v[2 * i + 1] = half_bits_to_f32(w[i] >> 16, dtype);
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// byte t of a (low half) and byte t of b (high half): bits 0-7 and 16-23
-__device__ __forceinline__ uint32_t pair_bytes(uint32_t a, uint32_t b, int t) {
-  return __byte_perm(a, b, t | ((4 + t) << 8));
-}
-
-// signed byte t of a word as an exact f32 (u = v + 128 under 2^23)
-__device__ __forceinline__ float s8_to_f32(uint32_t w_xor80, int t) {
-  return __int_as_float(__byte_perm(w_xor80, 0x4B000000u, 0x7540 | t)) - 8388736.f;
 }
 
 template <typename XT, int PARTS, int PACK, bool B16, int MT>
@@ -201,7 +117,6 @@ qmm_tc_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
   const int kb_end = min(K / 32, kb_begin + kb_per_split);
   const int nblk = kb_end - kb_begin;       // >= 1: k_split makes no empty split
   const int es = s_dtype == kF32 ? 4 : 2;
-  const int nplanes = mins != nullptr ? 2 : 1;
 
   // rows past nrows of the x parts stay zero
   if constexpr (!RAW_A) {
@@ -210,61 +125,10 @@ qmm_tc_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
     for (int i = tid; i < n16; i += kThreads) z[i] = make_uint4(0, 0, 0, 0);
   }
 
-  auto load_stage = [&](int kb, int slot) {
-    unsigned char* st = ring + slot * SG::BYTES;
-    const int64_t wrow0 = (int64_t)kb * SG::WROWS;
-    const int64_t qrow0 = (int64_t)kb * 8;
-    const int64_t srow0 = (int64_t)kb * SPB;
-    // the x tile (rows past nrows zero-filled): x rows start on 16 bytes
-    constexpr int XCH = 32 * (int)sizeof(XT) / 16;
-    for (int c = tid; c < RT * XCH; c += kThreads) {
-      const int r = c / XCH, ch = c - r * XCH;
-      const bool ok = r < nrows;
-      cp_async16(st + SG::X_OFF + r * SG::XROWB + ch * 16,
-                 x + (int64_t)(r0 + (ok ? r : 0)) * K + kb * 32 + ch * (16 / (int)sizeof(XT)),
-                 ok);
-    }
-    if (vec) {
-      for (int c = tid; c < (SG::WROWS + SG::QROWS) * 8; c += kThreads) {
-        const int r = c >> 3, col = (c & 7) * 16;
-        const bool ok = n_base + col < N;
-        const int n = ok ? n_base + col : 0;
-        const uint8_t* src = r < SG::WROWS ? q + (wrow0 + r) * N + n
-                                           : qh + (qrow0 + r - SG::WROWS) * N + n;
-        cp_async16(st + r * kRowB + col, src, ok);
-      }
-      const int cpr = kCols * es / 16;      // 16-byte chunks a plane row
-      for (int c = tid; c < nplanes * SPB * cpr; c += kThreads) {
-        const int pl = c / (SPB * cpr), rem = c - pl * SPB * cpr;
-        const int i = rem / cpr, ch = rem - i * cpr;
-        const int col = ch * 16 / es;
-        const bool ok = n_base + col < N;
-        const unsigned char* src = static_cast<const unsigned char*>(pl ? mins : scales) +
-                                   ((srow0 + i) * N + (ok ? n_base + col : 0)) * es;
-        cp_async16(st + (pl ? SG::M_OFF : SG::S_OFF) + i * kCols * 4 + ch * 16, src, ok);
-      }
-    } else {
-      // ragged N or unaligned planes: plain loads, zero past N (visible to
-      // every thread after the barrier that precedes the stage's use)
-      for (int c = tid; c < (SG::WROWS + SG::QROWS) * kCols; c += kThreads) {
-        const int r = c / kCols, col = c - r * kCols, n = n_base + col;
-        const uint8_t* src = r < SG::WROWS ? q + (wrow0 + r) * N + n
-                                           : qh + (qrow0 + r - SG::WROWS) * N + n;
-        st[r * kRowB + col] = n < N ? __ldg(src) : 0;
-      }
-      for (int c = tid; c < nplanes * SPB * kCols; c += kThreads) {
-        const int pl = c / (SPB * kCols), rem = c - pl * SPB * kCols;
-        const int i = rem / kCols, col = rem - i * kCols, n = n_base + col;
-        unsigned char* dst = st + (pl ? SG::M_OFF : SG::S_OFF) + i * kCols * 4;
-        const void* p = pl ? mins : scales;
-        const int64_t o = (srow0 + i) * N + n;
-        if (es == 4)
-          reinterpret_cast<float*>(dst)[col] = n < N ? __ldg(static_cast<const float*>(p) + o) : 0.f;
-        else
-          reinterpret_cast<uint16_t*>(dst)[col] =
-              n < N ? __ldg(static_cast<const unsigned short*>(p) + o) : (unsigned short)0;
-      }
-    }
+  const LinearCols cols{n_base, N};
+  auto load = [&](int i, int slot) {
+    load_stage<XT, PACK, B16, MT>(ring + slot * SG::BYTES, x, r0, nrows, K, q, qh, scales,
+                                  mins, es, N, cols, kb_begin + i, vec);
   };
 
   // f32 x' of block kb from the stage into its three parts (never rounded)
@@ -295,45 +159,8 @@ qmm_tc_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
 
   auto compute = [&](int slot) {
     const unsigned char* st = ring + slot * SG::BYTES;
-    auto word = [&](int r) { return *reinterpret_cast<const uint32_t*>(st + r * kRowB + wcol); };
-    uint32_t w[PACK == kInt8 ? 8 : 4];
-    w[0] = word(2 * tig);
-    w[1] = word(2 * tig + 1);
-    w[2] = word(2 * tig + 8);
-    w[3] = word(2 * tig + 9);
-    if constexpr (PACK == kInt8) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[4 + i] = word(2 * tig + (i >> 1) * 8 + (i & 1) + 16);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) w[i] ^= 0x80808080u;
-    }
-    uint32_t qw0 = 0, qw1 = 0;
-    if constexpr (PACK == kNibbleQh) {
-      qw0 = *reinterpret_cast<const uint32_t*>(st + SG::Q_OFF + (2 * tig) * kRowB + wcol);
-      qw1 = *reinterpret_cast<const uint32_t*>(st + SG::Q_OFF + (2 * tig + 1) * kRowB + wcol);
-    }
-    // B fragments of both k16 steps and the 4 n tiles: [step][tile][0] =
-    // rows (2tig, 2tig+1), [1] = rows (2tig+8, 2tig+9) of the step
     uint32_t b[2][4][2];
-#pragma unroll
-    for (int step = 0; step < 2; ++step)
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if constexpr (PACK == kInt8) {
-            const uint32_t wa = w[4 * step + 2 * h], wb = w[4 * step + 2 * h + 1];
-            b[step][t][h] = pack_bf16(s8_to_f32(wa, t), s8_to_f32(wb, t));
-          } else {
-            const uint32_t p = pair_bytes(w[2 * h], w[2 * h + 1], t) >> (4 * step);
-            uint32_t u = (p & 0x000F000Fu) | 0x43004300u;
-            if constexpr (PACK == kNibbleQh) {
-              const uint32_t hb = pair_bytes(qw0, qw1, t) >> (2 * h + 4 * step);
-              u |= (hb & 0x00030003u) << 4;
-            }
-            b[step][t][h] = bf16x2_sub(u, bias);
-          }
-        }
+    unpack_values<PACK, SG>(st, wcol, tig, bias, b);
     float sc[SPB][8], mn[SPB][8];
 #pragma unroll
     for (int si = 0; si < SPB; ++si) {
@@ -389,23 +216,13 @@ qmm_tc_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
     }
   };
 
-#pragma unroll 1
-  for (int s = 0; s < NST - 1; ++s) {
-    if (s < nblk) load_stage(kb_begin + s, s);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int i = 0; i < nblk; ++i) {
-    cp_async_wait<NST - 2>();
-    __syncthreads();            // stage i is in; every warp is done with block i - 1
-    if (i + NST - 1 < nblk) load_stage(kb_begin + i + NST - 1, (i + NST - 1) % NST);
-    cp_async_commit();
+  run_ring<NST>(nblk, load, [&](int i, int slot) {
     if constexpr (!RAW_A) {
-      convert_x(i % NST, kb_begin + i);
+      convert_x(slot, kb_begin + i);
       __syncthreads();
     }
-    compute(i % NST);
-  }
+    compute(slot);
+  });
 
   // this thread's outputs: rows m*16 + g8 (+ 8), columns ccol + 0..7, where
   // column ccol + c is acc[.][c & 3][c < 4 ? 0 : 1] (row g8) or [.. 2 : 3]
@@ -462,12 +279,7 @@ qmm_tc_kernel(const XT* __restrict__ x, const float* __restrict__ rs,
   // the last split of this output tile to finish sums the partials in
   // split order and resets the tile's counter for the next launch
   int* counter = counters + (int64_t)blockIdx.z * gridDim.x + blockIdx.x;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(counter, 1) == ksplit - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  if (!last_to_arrive(counter, ksplit, is_last)) return;
   for (int i = tid; i < nrows * kCols; i += kThreads) {
     const int r = i / kCols, n = n_base + (i - r * kCols);
     if (n >= N) continue;

@@ -63,10 +63,10 @@ SIGNATURES = {
     # n_split, sm_scale, stream
     "tlt_paged_decode_q": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # kind, rows -> CTAs of the cooperative launch
-    "tlt_ffn_grid": [_I, _I],
-    # x, q13, s13, s13_bf16, q2, s2, s2_bf16, kind, part_a, g, part_b, out,
-    # bar, rows, E, F, ks_a, kbps_a, ks_b, kbps_b, grid, stream
+    # kind -> CTAs of the cooperative launch that fit at once
+    "tlt_ffn_grid": [_I],
+    # x, q13, s13, s13_dtype, q2, s2, s2_dtype, kind, part_a, g, part_b, out,
+    # counters, rows, E, F, ks_a, kbps_a, ks_b, kbps_b, grid, stream
     "tlt_ffn": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }

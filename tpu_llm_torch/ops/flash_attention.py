@@ -17,7 +17,9 @@ Three kernels, each replacing a Pallas kernel of
   the append owned by the split that holds pos.
   ``decode_step(defer_kv=True)`` runs it.
 - ``flash_gqa_attention`` (K4, ``_flash_kernel``): causal prefill, query t
-  sees s <= offset + t, on tensor cores for bf16 q. Prefill takes it when
+  sees s <= offset + t, on tensor cores for f32 and bf16 q over f32 and
+  bf16 caches (f32 operands as three bf16 parts each,
+  ``flash_gqa_attention_split_plain``). Prefill takes it when
   the einsum path's scores would pass 64 MB (models/llama._attend), and
   the paged engine's long prefill chunks over the gathered view
   (ops/paged_kv.py).
@@ -48,6 +50,7 @@ from tpu_llm_torch.kernels import build
 from tpu_llm_torch.ops.attention import (NEG_INF, _bf16_inputs, gqa_attention,
                                          gqa_attention_deferred)
 from tpu_llm_torch.ops.kv_cache import QuantKV, gather_scale_pool
+from tpu_llm_torch.quant.qmatmul import split3_bf16
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -333,6 +336,54 @@ def flash_gqa_attention_plain(q, k_cache, v_cache, offset: int):
     T = q.shape[1]
     positions = offset + torch.arange(T, device=q.device, dtype=torch.int32)
     return gqa_attention(q, k_cache, v_cache, positions)
+
+
+def _parts_product(eq, a_parts, b_parts):
+    """The f32 sum of the einsum products a_i b_j with i + j <= 2, in the
+    kernel's order (b part by b part, a parts within): every product down
+    to 2^-16 of the leading one."""
+    out = None
+    for j, b in enumerate(b_parts):
+        for a in a_parts[:3 - j]:
+            term = torch.einsum(eq, a, b)
+            out = term if out is None else out + term
+    return out
+
+
+def flash_gqa_attention_split_plain(q, k_cache, v_cache, offset: int):
+    """K4's arithmetic in plain PyTorch (for the tests): each f32 operand
+    (q, an f32 cache's K and V rows, the unrounded softmax weights P) as
+    three bf16 parts (``split3_bf16``), a bf16 one as itself; S = q K^T
+    and O = P V as the f32 sums of the part products with i + j <= 2,
+    as the kernel keeps them (with bf16 q and cache P is rounded to bf16
+    instead). The softmax is taken over the whole row at once, where the
+    kernel runs it tile by tile: only the f32 rounding of the two differs.
+    q (B, T, H, D); caches (B, S, Hkv, D) or flat; output in q's dtype."""
+    B, T, H, D = q.shape
+    S = k_cache.shape[1]
+    k4 = k_cache.reshape(B, S, -1, D)
+    v4 = v_cache.reshape(B, S, -1, D)
+    G = H // k4.shape[2]
+
+    def parts(t):
+        f = t.float()
+        return split3_bf16(f) if t.dtype == torch.float32 else (f,)
+
+    qg = q.reshape(B, T, -1, G, D)
+    s = _parts_product("btkgd,bskd->bkgts", parts(qg), parts(k4)) * (1.0 / D ** 0.5)
+    pos = offset + torch.arange(T, device=q.device)
+    visible = torch.arange(S, device=q.device)[None, :] <= pos[:, None]   # (T, S)
+    s = s.masked_fill(~visible, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~visible, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if q.dtype == torch.bfloat16 and k_cache.dtype == torch.bfloat16:
+        p_parts = (p.bfloat16().float(),)
+    else:
+        p_parts = split3_bf16(p)
+    o = _parts_product("bkgts,bskd->bkgtd", p_parts, parts(v4))
+    o = o / torch.where(l == 0, torch.ones_like(l), l)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
 
 
 def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
