@@ -49,19 +49,30 @@ Phases, one JSON line each:
    verify window (q4_0 and its q4_0i4, every projection). K3 again on
    bench.py's bf16 (1, 1024, 256) cache at positions 16, 340 and 655. K7
    (the FFN megakernel, on K1's tensor-core tile) runs for q4_0 and q8_0
-   at 1 and 8 rows, timed beside the unfused path it replaces.
+   at 1 and 8 rows, timed beside the unfused path it replaces. llm-bench's
+   new shapes: K1 at Llama-2 7B's five projections, one row, on int4
+   planes (the kernels line's `*_7b_case`), and at TinyLlama's w13 with
+   the 40 rows of a k = 4 verify window at batch 8
+   (`verify_window_b8_case`); K2 at D 128 with 32 kv heads and one q head
+   a kv head, bf16 over a bf16 1024-row cache at position 1000
+   (`llama2_7b_case`); K5 over bf16 pools of 64-row blocks
+   (`bs64_case`).
 3. cli — the port's `llm` CLI on tiny GGUFs written here with the port's
    own writer (f32 and Q4_0 with --dtype f32 and native; Q4_K and Q6_K
    native; Q4_K native --fold-norms; Q4_0 native with
-   TPU_LLM_FFN_MEGAKERNEL set), on the card and on the CPU: the greedy
-   text must be identical, and the card runs must launch K1 (and K7).
+   TPU_LLM_FFN_MEGAKERNEL set; Q4_0 native over the int8 cache), on the
+   card and on the CPU: the greedy text must be identical, and the card
+   runs must launch K1 (and K7); then `--profile DIR` on the card, whose
+   Chrome trace must hold K1's kernel by name (up to three runs for a
+   trace with kernels in it; none fails).
    Phase scan_cli: --scan (the captured CUDA graph), --spec 3, --scan
    --spec 3 and --spec 3 --draft on a tiny Q4_0 file with the bigram bias,
    and --scan on a tiny Q8_0 file with TPU_LLM_FFN_MEGAKERNEL set (K7
    replayed inside the graph), card against CPU.
 4. serve_cli — the port's `llm-serve` on the tiny f32 GGUF and, native,
-   the tiny Q4_K and Q6_K ones: dense, --paged and --paged --cache-dtype
-   int8, on the card and on the CPU: the same completions.
+   the tiny Q4_K and Q6_K ones: dense, --paged, --paged --cache-dtype
+   int8, dense --cache-dtype int8, --spec 3 and --spec 3 --draft (the file
+   itself), on the card and on the CPU: the same completions.
 5. full width — a TinyLlama-1.1B-shaped Q4_0 model (22 layers, ~0.65 GB
    packed) from seeded random weights built on the card, entered at
    Engine.generate: a 16-token prompt + 128 greedy tokens, a 512-token
@@ -87,7 +98,10 @@ Phases, one JSON line each:
    TF32 off: a 512-token prompt through Engine.generate (TTFT; K4 takes
    the prefill, 22 launches), the prefill profiled (K4's device ms), and
    the first-token logits held against the plain path at 1e-3 *
-   max|logit| (the bf16 paths' logits: 2e-2).
+   max|logit| (the bf16 paths' logits: 2e-2). Then the same prompt over
+   the dense int8 cache (`llm --cache-dtype int8`): the prefill
+   dequantizes the planes to bf16 for K4 (22 launches), its first-token
+   logits held against the plain path at 2e-2 * max|logit|.
 8. scan full width — the phase-5 model: the step loop and
    Engine.generate(use_scan=True) (16 + 128 greedy, f32 cache) give equal
    tokens; bench.py's program (decode_step(defer_kv=True), bf16 cache of
@@ -108,6 +122,16 @@ Phases, one JSON line each:
    Engine.generate (16 + 128, bf16 activations), one decode step's
    launches, and the first-step logits (f32 activations) held against the
    plain path.
+10. bench_cli — the port's `llm-bench` in-process on the card, each row
+   on a line of its own: bf16 / q8_0 / q4_0 decode and TTFT (32 steps, 3
+   TTFT samples); q4_0 with a 512-token prompt over 2048 rows (K4 takes
+   the TTFT prefill); q6_k and q4_k; q4_0 over the int8 cache; Llama-2 7B
+   q4_0 and bf16 (16 steps); --paged at batch 8 over 64-row blocks beside
+   the dense cache; --spec (the BatchEngine host loop, batch 1 and 8,
+   plain and k = 4, with tokens per verify forward). Each invocation is a
+   main-path run with the kernels it must launch; then one step of the
+   7b_q4_0 program (K1 at the 7B projections, K2 at D 128) held against
+   the plain path.
 Each main-path run starts with every launch count at 0 and reads the
 counts after; a kernel of the path that never launched fails the run.
 
@@ -205,6 +229,7 @@ INT4_PLANES = ("f32", "bf16", "int16")
 # bench.py's program: cache rows, prompt length, the two slope-timed runs
 BENCH_MAX_SEQ, BENCH_PROMPT, BENCH_STEPS = 1024, 16, (128, 640)
 SPEC_K = 4             # draft tokens a verify window at full width
+BENCH_VERIFY_ROWS = 8 * (SPEC_K + 1)     # llm-bench --spec's verify window at batch 8
 
 
 def random_qtensor(torch, g, kind: str, K: int, N: int, planes: str = "f32",
@@ -288,6 +313,10 @@ def check_kernels(torch, timer):
     # rows 1 and 8, plus prefill rows 512 on w13
     shapes = {"wqkv": (2048, 2560), "wo": (2048, 2048), "w13": (2048, 11264),
               "w2": (5632, 2048), "wcls": (2048, 32000)}
+    # Llama-2 7B's projections (llm-bench's 7b rows), read only below
+    shapes_7b = {f"{n}_7b": kn for n, kn in (
+        ("wqkv", (4096, 12288)), ("wo", (4096, 4096)), ("w13", (4096, 22016)),
+        ("w2", (11008, 4096)), ("wcls", (4096, 32000)))}
     # (q4_0 / q8_0 with f32 planes; then every other kind at w13 and wcls
     # with f32 and bf16 planes, and the two default K-quant layouts — what
     # Q4_K and Q6_K load as — over all five shapes; row_scale on w13 at 8 rows)
@@ -306,6 +335,12 @@ def check_kernels(torch, timer):
     # the k = 4 verify window of speculation (5 rows): host loop on q4_0,
     # device loop on its q4_0i4 conversion with f32 planes
     runs += [(n, kn, "f32", SPEC_K + 1) for kn in ("q4_0", "q4_0i4<q4_0") for n in shapes]
+    # Llama-2 7B: every projection at one row (its int4 planes, what
+    # llm-bench's 7b_q4_0 row decodes over); and w13 at the 40 rows of
+    # llm-bench --spec's verify windows (k = 4 at batch 8, q4_0)
+    runs += [(n, "q4_0i4<q4_0", "f32", 1) for n in shapes_7b]
+    runs += [("w13", "q4_0", "f32", BENCH_VERIFY_ROWS)]
+    shapes.update(shapes_7b)
     for wname, kind, planes, rows in runs:
         K, N = shapes[wname]
         if kind.startswith("q4_0i4<"):
@@ -316,7 +351,7 @@ def check_kernels(torch, timer):
         rs = None
         if kind not in ("q4_0", "q8_0") and wname == "w13" and rows == 8:
             rs = 1 + 0.2 * torch.randn(K, generator=g, device=dev)
-        out_dtype = torch.float32 if wname == "wcls" else torch.bfloat16
+        out_dtype = torch.float32 if wname.startswith("wcls") else torch.bfloat16
         got = qmatmul(x, w, out_dtype=out_dtype, row_scale=rs)
         want = qmatmul_plain(x, w, out_dtype=out_dtype, row_scale=rs)
         info = dict(weight=wname, kind=kind, planes=planes, rows=rows, K=K, N=N, x="bf16",
@@ -390,6 +425,26 @@ def check_kernels(torch, timer):
                nbytes(q) * 2 + 2 * B * (pos + 1) * Hkv * D * it,
                4.0 * B * H * (pos + 1) * D, "f32")
         check_fused(kc, vc, pos, "f32")
+    # K2 at Llama-2 7B's shapes (llm-bench's 7b rows): D 128, 32 kv heads,
+    # one q head a kv head, bf16 q over a bf16 (1, 1024, 4096) cache
+    H7, D7, S7, pos7 = 32, 128, 1024, 1000
+    k7, v7 = (torch.randn((B, S7, H7 * D7), generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    q7 = torch.randn((B, 1, H7, D7), generator=g, device=dev).bfloat16()
+    p7 = torch.tensor([pos7], dtype=torch.int32, device=dev)
+    info = dict(B=B, H=H7, Hkv=H7, D=D7, S=S7, pos=pos7, q="bf16", cache="bf16",
+                n_split=FA.decode_splits(B, H7, S7)[1])
+    got = FA.flash_decode_attention(q7, k7, v7, p7)
+    err, tol = compare("flash_decode_attention", got,
+                       FA.flash_decode_attention_plain(q7, k7, v7, p7), True, **info)
+    k74, v74 = (c.view(B, S7, H7, D7)[:, :pos7 + 1].transpose(1, 2) for c in (k7, v7))
+    record("flash_decode_attention", info, err, tol,
+           timer.ms(lambda: FA.flash_decode_attention(q7, k7, v7, p7)),
+           timer.ms(lambda: FA.flash_decode_attention_plain(q7, k7, v7, p7)),
+           timer.ms(lambda: F.scaled_dot_product_attention(q7.transpose(1, 2), k74, v74)),
+           nbytes(q7) * 2 + 2 * B * (pos7 + 1) * H7 * D7 * 2,
+           4.0 * B * H7 * (pos7 + 1) * D7, "bf16")
+    del k7, v7, k74, v74
     # K3 as bench.py's program runs it: a bf16 (1, 1024, 256) cache, the
     # positions 16-655 of its 640-step run
     kb = torch.randn((B, BENCH_MAX_SEQ, Hkv * D), generator=g, device=dev).bfloat16()
@@ -611,6 +666,7 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
     cases["paged_flash_decode_q"] = []
     for (name, pool, BS), positions in itertools.product(
             (("paged_flash_decode_attention", "bf16", 16),
+             ("paged_flash_decode_attention", "bf16", 64),      # llm-bench --paged
              ("paged_flash_decode_attention", "f32", 16),
              ("paged_flash_decode_q", "int8", 32)), (PAGED_POS, PAGED_BATCH1_POS)):
         B = len(positions)
@@ -842,6 +898,28 @@ def check_cli(tmp: str):
     with switch("TPU_LLM_FFN_MEGAKERNEL"):
         results.append(cli_card_vs_cpu(os.path.join(tmp, "tiny_q4_0.gguf"), "native",
                                        must=("qmatmul", "ffn_fused")))
+    # --cache-dtype int8 (the dense QuantKV cache), and --profile DIR: a
+    # Chrome trace that holds the card's kernels by name
+    results.append(cli_card_vs_cpu(os.path.join(tmp, "tiny_q4_0.gguf"), "native",
+                                   ["--cache-dtype", "int8"], must=("qmatmul",)))
+    prof = os.path.join(tmp, "profile")
+    # the profiler's device trace now and then comes back empty
+    # (launches_per_call): up to three runs for one with kernels, which
+    # must hold K1's
+    for tries in range(1, 4):
+        out = run_cli(["-m", os.path.join(tmp, "tiny_q4_0.gguf"), "-p", "abc", "-n", "12",
+                       "--dtype", "native", "--profile", prof, "--device", "cuda"])
+        with open(os.path.join(prof, "trace.json")) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        if events:
+            break
+    kernels = {e["name"] for e in events}
+    emit("cli_profile", last_line=out.decode().splitlines()[-1], tries=tries,
+         kernel_events=len(events), qmm=sorted(k[:60] for k in kernels if "qmm" in k))
+    if not kernels:
+        fail("llm --profile: the trace held no kernel in 3 runs")
+    if not any("qmm" in k for k in kernels):
+        fail(f"llm --profile: no qmatmul kernel in the trace ({sorted(kernels)[:20]})")
     return results
 
 
@@ -868,7 +946,10 @@ def check_scan_cli(tmp: str):
 # -- phase 4: llm-serve on the tiny GGUF -------------------------------------------
 
 SERVE_MODES = {"dense": [], "paged": ["--paged", "--block-size", "4"],
-               "paged_int8": ["--paged", "--cache-dtype", "int8"]}
+               "paged_int8": ["--paged", "--cache-dtype", "int8"],
+               "dense_int8": ["--cache-dtype", "int8"], "spec": ["--spec", "3"],
+               # --draft: the served file itself
+               "spec_draft": ["--spec", "3", "--draft", None]}
 
 
 def run_serve_cli(argv):
@@ -896,6 +977,7 @@ def check_serve_cli(tmp: str):
         base = ["-m", path, "-p", "abc", "-p", "ab", "-p", "abc abc ab", "-p", "abc abc b",
                 "-n", "6", "--batch", "2", "--dtype", dtype]
         for mode, flags in SERVE_MODES.items():
+            flags = [path if f is None else f for f in flags]
             reset_counts()
             card, card_sum = run_serve_cli(base + flags + ["--device", "cuda"])
             launched = read_counts()["qmatmul"]
@@ -1792,9 +1874,136 @@ def f32_full_width(torch):
                logits_err=lv["max_abs_err"], logits_tol=lv["tol"],
                logits_top2_gap=lv["top2_gap"])
     emit("f32_full_width", **row)
-    del engine, params
+    del engine
+    int8_cache_prefill(torch, params, cfg, prompt512, ids, max_seq, runs, total)
+    del params
     torch.cuda.empty_cache()
     return dict(runs=runs, total=total, row=row)
+
+
+def int8_cache_prefill(torch, params, cfg, prompt512, ids, max_seq, runs, total):
+    """`llm --cache-dtype int8`'s long prefill: the same 512-token prompt
+    through Engine.generate over the dense int8 cache of 2048 rows, whose
+    prefill dequantizes the planes once a layer to bf16 for K4 (bf16 q),
+    one launch a layer; the first-token logits over the int8 cache held
+    against the plain path (2e-2: bf16 q and planes)."""
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+
+    engine = Engine(params, ModelAdapter.llama(cfg, "int8", bos_id=1, device="cuda"),
+                    max_seq=max_seq, device="cuda")
+    engine.generate(prompt512, n_new=2)          # warm-up
+    res, counts = drive_run(torch, "int8_cache_generate_512_16",
+                            lambda: engine.generate(prompt512, n_new=16),
+                            ("flash_gqa_attention",), runs, total)
+    if counts["flash_gqa_attention"] != cfg.n_layers:
+        fail(f"int8-cache 512-token prefill: {counts['flash_gqa_attention']} K4 launches, "
+             f"not one a layer ({cfg.n_layers})")
+
+    def fn():
+        c = M.init_cache(cfg, 1, max_seq, "int8", "cuda")
+        x, _ = M.forward(params, cfg, ids, c, 0)
+        return M.lm_head(params, cfg, x[:, -1:])[0, 0]
+
+    lv = logits_vs_plain(torch, "int8_cache_512_first_token", fn)
+    emit("int8_cache_prefill", prompt_tokens=512, new_tokens=16, ttft_ms=res.ttft_s * 1e3,
+         decode_tok_s=res.tokens_per_s, launches=counts, logits_err=lv["max_abs_err"],
+         logits_tol=lv["tol"], logits_top2_gap=lv["top2_gap"])
+
+
+# -- phase 10: llm-bench on the card ------------------------------------------------
+
+# the port's llm-bench at modest steps, and the kernels each run must launch
+BENCH_CLI_RUNS = [
+    (["--configs", "bf16,q8_0,q4_0", "--steps", "32", "--ttft-samples", "3"],
+     ("qmatmul", "flash_decode_attention")),
+    # TTFT at 512 tokens over 2048 rows: the scores pass 64 MB, so K4
+    (["--configs", "q4_0", "--prompt-len", "512", "--max-seq", "2048", "--steps", "32"],
+     ("qmatmul", "flash_decode_attention", "flash_gqa_attention")),
+    (["--configs", "q6_k,q4_k", "--skip-ttft", "--steps", "32"],
+     ("qmatmul", "flash_decode_attention")),
+    # int8 planes decode on the plain path (as in the JAX package)
+    (["--configs", "q4_0", "--cache-dtype", "int8", "--skip-ttft", "--steps", "32"],
+     ("qmatmul",)),
+    (["--configs", "7b_q4_0,7b_bf16", "--skip-ttft", "--steps", "16"],
+     ("qmatmul", "flash_decode_attention")),
+    (["--paged", "--batch", "8", "--steps", "32"],
+     ("qmatmul", "paged_flash_decode_attention", "flash_decode_attention")),
+    (["--spec", "--steps", "32"], ("qmatmul", "flash_decode_attention")),
+]
+
+
+def run_bench_cli(argv):
+    """The port's llm-bench in-process: its JSON rows."""
+    from tpu_llm_torch.runtime import bench_cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_cli.main(argv)
+    if rc != 0:
+        fail(f"llm-bench {argv} exited {rc}")
+    return [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+
+
+def llama2_7b_step_vs_plain(torch):
+    """One step of llm-bench's 7b_q4_0 program (a 16-token prompt
+    prefilled into a bf16 cache, then decode_step over the int4-plane
+    weights at a device position: K1 at the 7B projections, K2 at D 128,
+    32 kv heads) held against the plain path."""
+    from tpu_llm_torch.config import llama2_7b
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.quant.convert_params import unpack_params_int4
+    from tpu_llm_torch.runtime.bench_cli import synth_quant_llama
+
+    cfg = llama2_7b()
+    params = synth_quant_llama(cfg, "q4_0", seed=5, device="cuda")
+    p4 = unpack_params_int4(params)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    ids = torch.randint(3, cfg.vocab_size, (1, 16), generator=g, device="cuda")
+
+    def fn():
+        c = M.init_cache(cfg, 1, 1024, torch.bfloat16, "cuda")
+        _, c = M.forward(params, cfg, ids, c, 0)
+        pos = torch.full((1,), ids.shape[1], dtype=torch.int32, device="cuda")
+        return M.decode_step(p4, cfg, torch.tensor([5], device="cuda"), c, pos)[0][0]
+
+    return logits_vs_plain(torch, "llama2_7b_q4_0_bench_step", fn)
+
+
+def bench_cli_full_width(torch):
+    """The port's llm-bench rows on the card (BENCH_CLI_RUNS), each run a
+    main-path run with its counts; every row finite and positive, the spec
+    rows with tokens per verify forward; then one 7B decode step's logits
+    against the plain path."""
+    runs, total = {}, {n: 0 for n in counters()}
+    rows = []
+    for argv, must in BENCH_CLI_RUNS:
+        t = time.perf_counter()
+        got, counts = drive_run(torch, "llm-bench " + " ".join(argv),
+                                lambda: run_bench_cli(argv), must, runs, total)
+        if not got:
+            fail(f"llm-bench {argv} printed no row")
+        for r in got:
+            if not (isinstance(r["value"], (int, float)) and math.isfinite(r["value"])
+                    and r["value"] > 0):
+                fail(f"llm-bench {argv}: row {r}")
+            if "_engine_spec" in r["metric"] and "tokens_per_verify_forward" not in r:
+                fail(f"llm-bench {argv}: spec row without tokens_per_verify_forward: {r}")
+            emit("bench_cli", argv=argv, **r)
+        emit("bench_cli_run", argv=argv, s=time.perf_counter() - t,
+             launches={k: v for k, v in counts.items() if v})
+        rows += got
+    metrics = {r["metric"] for r in rows}
+    for m in ("llama2_7b_q4_0_decode_tokens_per_s_per_chip",
+              "llama2_7b_bf16_decode_tokens_per_s_per_chip",
+              "tinyllama_1.1b_q4_0_PAGED_decode_tokens_per_s_b8_bs64",
+              "tinyllama_1.1b_q4_0_ttft_p50_prompt512"):
+        if m not in metrics:
+            fail(f"llm-bench: row {m} missing")
+    lv = llama2_7b_step_vs_plain(torch)
+    torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, rows=rows, logits_7b=lv)
 
 
 # -- main --------------------------------------------------------------------------
@@ -1808,8 +2017,14 @@ EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q=
                                        "f32_q_bf16_cache_case": dict(T=512, cache="bf16",
                                                                      q="f32")},
                "qmatmul": {"prefill_case": dict(weight="w13", kind="q4_0", rows=512),
-                           "verify_window_case": dict(weight="w13", kind="q4_0", rows=5)},
-               "paged_flash_decode_attention": {"batch1_case": dict(pool="bf16", B=1)},
+                           "verify_window_case": dict(weight="w13", kind="q4_0", rows=5),
+                           "verify_window_b8_case": dict(weight="w13", kind="q4_0",
+                                                         rows=BENCH_VERIFY_ROWS),
+                           **{f"{n}_7b_case": dict(weight=f"{n}_7b", rows=1)
+                              for n in ("wqkv", "wo", "w13", "w2", "wcls")}},
+               "flash_decode_attention": {"llama2_7b_case": dict(D=128, Hkv=32)},
+               "paged_flash_decode_attention": {"batch1_case": dict(pool="bf16", B=1),
+                                                "bs64_case": dict(pool="bf16", BS=64, B=8)},
                "paged_flash_decode_q": {"batch1_case": dict(pool="int8", B=1)}}
 
 # what the paged cases report of their launch: splits, kernels a call
@@ -1819,7 +2034,7 @@ KERNELS = [
     ("qmatmul", "tpu_llm_torch/csrc/qmatmul.cu", "tpu_llm/quant/pallas_matmul.py:59",
      dict(weight="w13", kind="q4_0", rows=1)),
     ("flash_decode_attention", "tpu_llm_torch/csrc/flash_attention.cu",
-     "tpu_llm/ops/flash_attention.py:121", dict(cache="bf16")),
+     "tpu_llm/ops/flash_attention.py:121", dict(cache="bf16", Hkv=4)),
     ("flash_decode_fused", "tpu_llm_torch/csrc/flash_attention.cu",
      "tpu_llm/ops/flash_attention.py:801", dict(pos=1000)),
     ("flash_gqa_attention", "tpu_llm_torch/csrc/flash_attention.cu",
@@ -1875,7 +2090,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32 = f32_full_width(torch)
     kq = kquant_full_width(torch)
-    phases = (fw, sc, sv, mk, f32, kq)
+    torch.cuda.empty_cache()
+    bc = bench_cli_full_width(torch)
+    phases = (fw, sc, sv, mk, f32, kq, bc)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     def case(name, pick):

@@ -7,12 +7,14 @@ same seed (the two packages' random streams differ by design)."""
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_llama import jax_params, to_numpy
 from tpu_llm.config import LlamaConfig as JConfig
 from tpu_llm.runtime import batching as JB
 from tpu_llm.runtime import engine as JE
 from tpu_llm_torch.config import LlamaConfig as TConfig
+from tpu_llm_torch.models import llama as TM
 from tpu_llm_torch.models.llama import params_from_numpy
 from tpu_llm_torch.runtime import batching as TB
 from tpu_llm_torch.runtime import engine as TE
@@ -142,5 +144,110 @@ def test_reset_then_same_tokens(weights):
 
 
 def test_dense_int8_cache_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.ModelAdapter.llama(TConfig(**CFG), cache_dtype="int8", device="cpu")
+    """What a dense int8 cache is still refused: the fused decode + append
+    (defer_kv, K3), whose kernel takes float caches only."""
+    cfg = TConfig(**CFG)
+    _, tp = _weights_q4_0()
+    cache = TM.init_cache(cfg, 1, CFG["seq_len"], "int8", "cpu")
+    with pytest.raises(ValueError, match="float caches"):
+        TM.decode_step(tp, cfg, torch.ones(1, dtype=torch.long), cache, 3, defer_kv=True)
+
+
+def test_dense_int8_cache_matches_jax():
+    """The adapter serves int8 QuantKV planes: the same greedy tokens as
+    the JAX engine over its int8 cache."""
+    jp, tp = _weights_q4_0()
+    je = JB.BatchEngine(jp, JE.ModelAdapter.llama(JConfig(**CFG), cache_dtype="int8"),
+                        batch=2, max_seq=CFG["seq_len"])
+    te = TB.BatchEngine(tp, TE.ModelAdapter.llama(TConfig(**CFG), cache_dtype="int8",
+                                                  device="cpu"),
+                        batch=2, max_seq=CFG["seq_len"])
+    script = SCRIPTS["staggered_admission"][1]
+    assert drive(te, TB, script) == drive(je, JB, script)
+
+
+def _weights_q4_0(seed: int = 0):
+    jp = jax_params("q4_0", seed=seed)
+    return jp, params_from_numpy(to_numpy(jp))
+
+
+def spec_engines(weights, batch, k, draft=None, cache_dtype=None):
+    """The JAX and port BatchEngines with ``speculative_k`` k; ``draft`` a
+    (jax params, port params) pair of a draft model of CFG's shape."""
+    jp, tp = weights
+    kw = {} if cache_dtype is None else {"cache_dtype": cache_dtype}
+    jd = td = None
+    if draft is not None:
+        jd = (draft[0], JE.ModelAdapter.llama(JConfig(**CFG), bos_id=1))
+        td = (draft[1], TE.ModelAdapter.llama(TConfig(**CFG), device="cpu"))
+    je = JB.BatchEngine(jp, JE.ModelAdapter.llama(JConfig(**CFG), bos_id=1, **kw),
+                        batch=batch, max_seq=CFG["seq_len"], speculative_k=k, draft=jd)
+    te = TB.BatchEngine(tp, TE.ModelAdapter.llama(TConfig(**CFG), device="cpu", **kw),
+                        batch=batch, max_seq=CFG["seq_len"], speculative_k=k, draft=td)
+    return je, te
+
+
+# repetitive prompts, so that prompt lookup finds drafts that get accepted;
+# the 58-token prompt reaches the end of the 64-row cache (plain steps there)
+SPEC_SCRIPTS = {
+    "repetitive": (4, [("submit", [5, 11, 5, 11, 5], 6, {}), ("submit", [3, 3, 3], 7, {}),
+                       ("submit", [9, 2, 9, 2], 5, {}), ("run",)]),
+    "staggered": (2, [("submit", [5, 11, 5, 11], 3, {}), ("submit", [7, 8, 7, 8, 7], 9, {}),
+                      ("until_done", 0), ("submit", [4, 6, 4, 6], 6, {}), ("run",)]),
+    "cache_end": (2, [("submit", [5, 11] * 29, 5, {}), ("submit", [9, 2, 9], 6, {}),
+                      ("run",)]),
+}
+
+
+@pytest.mark.parametrize("drafter", ["lookup", "draft_model"])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("name", list(SPEC_SCRIPTS))
+def test_speculative_tokens_match_jax(weights, name, k, drafter):
+    """Batched speculation (prompt lookup, or a draft model from another
+    seed): the JAX engine's tokens and spec stats, and the plain greedy
+    stream of the port's own plain engine."""
+    batch, script = SPEC_SCRIPTS[name]
+    draft = _weights_q4_0(seed=1) if drafter == "draft_model" else None
+    je, te = spec_engines(weights, batch, k, draft)
+    want = drive(je, JB, script)
+    got = drive(te, TB, script)
+    assert got == want and all(done for _, done in got)
+    assert te.stats == je.stats and te.stats["spec_forwards"] > 0
+    _, plain = engines(weights, batch)
+    assert drive(plain, TB, script) == got
+
+
+def test_speculative_mixed_temperature(weights):
+    """A sampled slot in a speculative batch emits the stream it emits in
+    the port's plain engine (one draw a step, no drafts accepted); the
+    greedy slot's tokens are the JAX spec engine's."""
+    script = [("submit", [4, 4, 4], 6, {"temperature": 0.8, "seed": 42}),
+              ("submit", [5, 11, 5, 11], 6, {}), ("run",)]
+    je, te = spec_engines(weights, 4, 3)
+    got = drive(te, TB, script)
+    _, plain = engines(weights, 4)
+    assert got == drive(plain, TB, script)
+    assert got[1] == drive(je, JB, script)[1]
+
+
+def test_speculative_eos_stop(weights):
+    _, te = engines(weights, 2)
+    first = drive(te, TB, [("submit", [6], 1, {}), ("run",)])[0][0][0]
+    je, te = spec_engines(weights, 2, 4)
+    for eng in (je, te):
+        eng.eos_id = first
+    script = [("submit", [6], 10, {"stop_at_eos": True}), ("run",)]
+    got = drive(te, TB, script)
+    assert got == drive(je, JB, script) and got[0][0] == [first]
+
+
+def test_speculative_int8_cache(weights):
+    """Speculation over the dense int8 cache: the JAX int8 spec engine's
+    tokens, and the port's plain int8 engine's."""
+    script = [("submit", [5, 11, 5, 11], 6, {}), ("submit", [9, 2, 9], 6, {}), ("run",)]
+    je, te = spec_engines(weights, 2, 3, cache_dtype="int8")
+    got = drive(te, TB, script)
+    assert got == drive(je, JB, script)
+    plain = TB.BatchEngine(weights[1], TE.ModelAdapter.llama(
+        TConfig(**CFG), cache_dtype="int8", device="cpu"), batch=2, max_seq=CFG["seq_len"])
+    assert drive(plain, TB, script) == got

@@ -1,8 +1,9 @@
 """The port's CLI (run on the CPU) prints byte-identical greedy output to
 tpu_llm.runtime.cli on the tiny test GGUFs (f32, Q4_0, and K-quant and
 legacy-quant files), with and without --fold-norms, and with --scan,
---spec, --spec --draft and --scan --spec; --timings prints the five
-buckets."""
+--spec, --spec --draft and --scan --spec, and over the int8 cache
+(--cache-dtype int8); --timings prints the five buckets, --profile DIR
+writes a trace."""
 
 import pytest
 
@@ -42,20 +43,25 @@ def test_sampled_output_reproducible_per_seed(tmp_path, capfdbinary):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("flag,refused", [(["--scan"], False), (["--top-k", "5"], True),
-                                          (["--spec", "2"], False),
-                                          (["--cache-dtype", "int8"], True),
-                                          (["--profile", "x"], True)])
-def test_flags_outside_the_slice_are_refused(flag, refused):
-    """--scan and --spec parse since the --scan slice; the sampling filters,
-    the dense int8 cache and --profile stay refused."""
-    parser = tcli.build_parser()
-    if refused:
-        with pytest.raises(SystemExit):
-            parser.parse_args(["-m", "x.gguf", *flag])
-    else:
-        args = parser.parse_args(["-m", "x.gguf", *flag])
-        assert args.scan or args.spec == 2
+@pytest.mark.parametrize("flag", [["--top-k", "5"], ["--top-p", "0.9"], ["--min-p", "0.1"]],
+                         ids=["top-k", "top-p", "min-p"])
+def test_flags_outside_the_slice_are_refused(flag):
+    """The sampling filters stay refused (argparse exits 2)."""
+    with pytest.raises(SystemExit) as e:
+        tcli.build_parser().parse_args(["-m", "x.gguf", *flag])
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("flag,attr,value", [(["--scan"], "scan", True),
+                                             (["--spec", "2"], "spec", 2),
+                                             (["--cache-dtype", "int8"], "cache_dtype", "int8"),
+                                             (["--profile", "x"], "profile", "x")],
+                         ids=["scan", "spec", "cache-dtype-int8", "profile"])
+def test_slice_flags_parse(flag, attr, value):
+    """--scan and --spec parse since the --scan slice, --cache-dtype int8
+    and --profile since the dense int8 slice."""
+    args = tcli.build_parser().parse_args(["-m", "x.gguf", *flag])
+    assert getattr(args, attr) == value
 
 
 def _first_lines(capfdbinary, args, port_flags=()):
@@ -133,3 +139,38 @@ def test_timings_prints_the_five_buckets(tmp_path, capfdbinary):
     rows = lines[at + 1:at + 6]
     assert [r.split()[1] for r in rows] == ["qkv", "rope", "attention", "ffn", "classifier"]
     assert all(float(r.split()[2]) == float(r.split()[2]) for r in rows)     # not NaN
+
+
+@pytest.mark.parametrize("flags", [[], ["--scan"], ["--spec", "3"]],
+                         ids=["step", "scan", "spec"])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "q4_0"])
+def test_int8_cache_matches_jax(tmp_path, capfdbinary, quant, flags):
+    """--cache-dtype int8 (the dense QuantKV cache) prints the JAX CLI's
+    first line, in the step loop, the graph loop and speculation."""
+    path = str(tmp_path / "tiny.gguf")
+    build_tiny_gguf(path, quant=quant)
+    got, want = _first_lines(capfdbinary, ["-m", path, "-p", "abc", "-n", "12",
+                                           "--dtype", "f32", "--cache-dtype", "int8",
+                                           *flags])
+    assert got == want and got.startswith(b"abc") and len(got) > 3
+
+
+def test_profile_writes_a_trace(tmp_path, capfdbinary):
+    """--profile DIR on the CPU: the same text, a Chrome trace in DIR that
+    holds the model's ops, and the line that names DIR."""
+    import json
+
+    path = str(tmp_path / "tiny.gguf")
+    build_tiny_gguf(path, quant=True)
+    out_dir = tmp_path / "prof"
+    got, want = _first_lines(capfdbinary, ["-m", path, "-p", "abc", "-n", "8",
+                                           "--dtype", "f32"], ["--profile", str(out_dir)])
+    assert got == want
+    trace = json.loads((out_dir / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("matmul" in n or "mm" in n for n in names)
+    capfdbinary.readouterr()
+    assert tcli.main(["-m", path, "-p", "abc", "-n", "4", "--dtype", "f32",
+                      "--profile", str(out_dir), "--device", "cpu"]) == 0
+    lines = capfdbinary.readouterr().out.decode().splitlines()
+    assert lines[-1] == f" Timings: torch.profiler trace written to {out_dir}"

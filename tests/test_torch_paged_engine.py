@@ -136,3 +136,41 @@ def test_reset_recovers(weights):
     te.run()
     want = drive(je, JB, [("submit", [5, 9, 3], 6, {}), ("run",)])
     assert r2.tokens == r1.tokens == want[0][0]
+
+
+@pytest.mark.parametrize("drafter", ["lookup", "draft_model"])
+@pytest.mark.parametrize("block_size,cache", [(2, None), (4, None), (32, "int8")])
+def test_paged_speculative_matches_jax(weights, block_size, cache, drafter):
+    """Speculation over the paged pools (tests/test_paged_engine.py
+    ``test_paged_speculative_matches_plain``): across block growth, slot
+    reuse and a draft model (its own dense cache), the JAX paged spec
+    engine's tokens, spec stats, prefix-cache counts and blocks in use,
+    and the port's plain paged stream."""
+    from tests.test_torch_batching import _weights_q4_0
+    from tpu_llm.runtime.engine import ModelAdapter as JAdapter
+    from tpu_llm_torch.runtime.engine import ModelAdapter as TAdapter
+
+    kw = dict(batch=2, n_blocks=64, block_size=block_size, speculative_k=3)
+    if cache:
+        kw["cache_dtype"] = cache
+    if drafter == "draft_model":
+        jd, td = _weights_q4_0(seed=1)
+        jp, tp = weights
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            je = JPaged(jp, JConfig(**CFG), max_seq=CFG["seq_len"], **kw,
+                        draft=(jd, JAdapter.llama(JConfig(**CFG), bos_id=1)))
+            te = TPaged(tp, TConfig(**CFG), max_seq=CFG["seq_len"], device="cpu", **kw,
+                        draft=(td, TAdapter.llama(TConfig(**CFG), device="cpu")))
+    else:
+        je, te = engines(weights, **kw)
+    script = [("submit", [5, 11, 5, 11, 5], 6, {}), ("submit", [9, 2, 9, 2], 5, {}),
+              ("run",), ("submit", [3, 3, 3], 4, {}), ("run",)]
+    want = drive(je, JB, script)
+    got = drive(te, TB, script)
+    assert got == want and all(done for _, done in got)
+    assert te.stats == je.stats and te.stats["spec_forwards"] > 0
+    assert stats(te) == stats(je)
+    kw.pop("speculative_k")
+    _, plain = engines(weights, **kw)
+    assert drive(plain, TB, script) == got

@@ -67,3 +67,10 @@ class LlamaConfig:
 def tinyllama_1_1b() -> LlamaConfig:
     """TinyLlama-1.1B: dim 2048, ffn 5632, 22 layers, 32/4 heads, vocab 32000."""
     return LlamaConfig()
+
+
+def llama2_7b() -> LlamaConfig:
+    """Llama-2 7B: dim 4096, ffn 11008, 32 layers, 32/32 heads (head_dim
+    128, one q head a kv head), vocab 32000, context 4096."""
+    return LlamaConfig(dim=4096, hidden_dim=11008, n_layers=32, n_heads=32,
+                       n_kv_heads=32, vocab_size=32000, seq_len=4096)

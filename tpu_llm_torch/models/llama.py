@@ -22,7 +22,10 @@ read at the same points (``llama._norm_folded``,
 
 The KV cache is a list of per-layer flat (B, S, Hkv*D) planes, written IN
 PLACE (the JAX version threads new arrays through; here a decode step
-writes one row). There is no autograd: this path serves only.
+writes one row), or, for the int8 cache, of ``QuantKV`` planes: decode
+attends them on the plain int8 path, and a prefill past the 64 MB gate
+dequantizes them once to bf16 for K4. There is no autograd: this path
+serves only.
 
 ``offset`` is an int, or a (B,) tensor giving each batch row its own
 position (continuous batching: positions (B, T) flow through RoPE, the
@@ -47,6 +50,7 @@ from tpu_llm_torch.ops.attention import gqa_attention, update_kv_cache
 from tpu_llm_torch.ops.flash_attention import (flash_decode_attention,
                                                flash_decode_fused,
                                                flash_gqa_attention)
+from tpu_llm_torch.ops.kv_cache import QuantKV, dequantize_kv
 from tpu_llm_torch.ops.norms import rmsnorm
 from tpu_llm_torch.ops.rope import rope_angles, rotate
 from tpu_llm_torch.quant.ffn import MAX_ROWS, ffn_fused, ffn_ok
@@ -65,9 +69,18 @@ FLASH_PREFILL_SCORES_BYTES = 64 * 1024 * 1024
 
 def init_cache(cfg: LlamaConfig, batch: int = 1, max_seq=None,
                dtype=torch.float32, device="cpu") -> Cache:
-    """Per-layer flat (B, S, Hkv*D) K and V planes, zero-filled."""
-    shape = (batch, max_seq or cfg.seq_len, cfg.kv_dim)
-    mk = lambda: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+    """Per-layer flat (B, S, Hkv*D) K and V planes, zero-filled. ``dtype``
+    f32 / bf16, or the string "int8": ``QuantKV`` planes, int8 values
+    (B, S, Hkv*D) with kv-head-major f32 scales (B, Hkv, S)
+    (ops/kv_cache.py)."""
+    S = max_seq or cfg.seq_len
+    shape = (batch, S, cfg.kv_dim)
+    if dtype in ("int8", torch.int8):
+        mk = lambda: QuantKV(  # noqa: E731
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros((batch, cfg.n_kv_heads, S), dtype=torch.float32, device=device))
+    else:
+        mk = lambda: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
     return {"k": [mk() for _ in range(cfg.n_layers)],
             "v": [mk() for _ in range(cfg.n_layers)]}
 
@@ -75,11 +88,22 @@ def init_cache(cfg: LlamaConfig, batch: int = 1, max_seq=None,
 # -- forward -----------------------------------------------------------------
 
 def _attend(q, kc, vc, positions, offset):
-    T, S, H = q.shape[1], kc.shape[1], q.shape[2]
+    quant = isinstance(kc, QuantKV)
+    T, S, H = q.shape[1], (kc.q if quant else kc).shape[1], q.shape[2]
     if T == 1:
-        return flash_decode_attention(q, kc, vc, positions)
+        # int8 planes decode on the plain path, as XLA runs them in the
+        # JAX package (its decode kernel takes float caches only)
+        return gqa_attention(q, kc, vc, positions) if quant else \
+            flash_decode_attention(q, kc, vc, positions)
     if (not torch.is_tensor(offset)
             and q.shape[0] * T * S * H * 4 > FLASH_PREFILL_SCORES_BYTES):
+        if quant:
+            # dequantize once a prefill call (bf16, 2x the int8 bytes)
+            # rather than materialize the einsum path's scores
+            D = q.shape[3]
+            kc = dequantize_kv(kc, torch.bfloat16, head_dim=D)
+            vc = dequantize_kv(vc, torch.bfloat16, head_dim=D)
+            return flash_gqa_attention(q.bfloat16(), kc, vc, offset).to(q.dtype)
         return flash_gqa_attention(q, kc, vc, offset)
     return gqa_attention(q, kc, vc, positions)
 
@@ -155,8 +179,8 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache
     the attention; a paged cache passes its per-layer state in
     cache["k"])."""
     B, T = tokens.shape
-    if defer_kv and T != 1:
-        raise ValueError("defer_kv is a decode (T == 1) path")
+    if defer_kv and (T != 1 or isinstance(cache["k"][0], QuantKV)):
+        raise ValueError("defer_kv is a decode (T == 1) path over float caches")
     x = params["tok_emb"][tokens.long()]
     steps = torch.arange(T, dtype=torch.int32, device=x.device)
     if torch.is_tensor(offset):

@@ -14,7 +14,10 @@ AV product (the reference contracts bf16 operands with f32 accumulation).
 Cache planes are flat (B, S, Hkv*D); ``update_kv_cache`` writes them IN
 PLACE (the JAX version returns new arrays): a decode step then touches one
 row instead of copying the plane. A (B,) offset vector writes each batch
-row at its own position (continuous batching).
+row at its own position (continuous batching). The dense int8 cache is a
+``QuantKV`` pair a plane: the new rows are quantized on the way in
+(``quantize_kv``) and their scales written beside them
+(``_update_scales_flat``, or ``_update_scales`` for 4D planes).
 
 ``kv_lengths`` (B,) additionally hides slots s >= kv_lengths[b] (the paged
 cache's gathered view, whose unmapped blocks hold garbage). int8 caches
@@ -27,32 +30,67 @@ from __future__ import annotations
 
 import torch
 
-from tpu_llm_torch.ops.kv_cache import QuantKV
+from tpu_llm_torch.ops.kv_cache import QuantKV, quantize_kv
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
-def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                    k_new: torch.Tensor, v_new: torch.Tensor, offset):
-    """Write k_new/v_new (B, T, Hkv, D) at rows [offset, offset+T) of the
-    flat (B, S, Hkv*D) planes, in place. ``offset`` is an int, or a (B,)
-    tensor of per-row positions whose start clamps to [0, S - T] as
-    ``dynamic_update_slice`` clamps it. Returns the planes."""
-    B, T = k_new.shape[:2]
-    kn = k_new.reshape(B, T, -1).to(k_cache.dtype)
-    vn = v_new.reshape(B, T, -1).to(v_cache.dtype)
+def _write_rows(dst: torch.Tensor, src: torch.Tensor, offset, axis: int = 1):
+    """Write ``src`` into ``dst`` at [offset, offset + T) along ``axis``
+    (1 or 2; batch is axis 0), in place. ``offset`` is an int, or a (B,)
+    tensor of per-row starts clamped to [0, S - T] as
+    ``dynamic_update_slice`` clamps them."""
+    if axis == 2:           # (B, H, S) planes: write the (B, S, H) view
+        dst, src = dst.transpose(1, 2), src.transpose(1, 2)
+    B, T = src.shape[:2]
+    src = src.to(dst.dtype)
     if not torch.is_tensor(offset):
-        k_cache[:, offset:offset + T] = kn
-        v_cache[:, offset:offset + T] = vn
-        return k_cache, v_cache
-    dev = k_cache.device
+        dst[:, offset:offset + T] = src
+        return
+    dev = dst.device
     start = offset.reshape(-1).to(device=dev, dtype=torch.long).expand(B)
-    cols = (start.clamp(0, k_cache.shape[1] - T)[:, None]
+    cols = (start.clamp(0, dst.shape[1] - T)[:, None]
             + torch.arange(T, device=dev)[None, :])
-    rows = torch.arange(B, device=dev)[:, None]
-    k_cache[rows, cols] = kn
-    v_cache[rows, cols] = vn
+    dst[torch.arange(B, device=dev)[:, None], cols] = src
+
+
+def update_kv_cache(k_cache, v_cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                    offset):
+    """Write k_new/v_new (B, T, Hkv, D) at rows [offset, offset+T) of the
+    caches, in place: flat (B, S, Hkv*D) or 4D (B, S, Hkv, D) planes, or
+    ``QuantKV`` pairs (the rows quantized by ``quantize_kv``, their scales
+    written beside them). ``offset`` is an int, or a (B,) tensor of
+    per-row positions whose start clamps to [0, S - T] as
+    ``dynamic_update_slice`` clamps it. Returns the caches."""
+    B, T = k_new.shape[:2]
+    if isinstance(k_cache, QuantKV):
+        kq, ks = quantize_kv(k_new)             # (B, T, Hkv, D), (B, T, Hkv)
+        vq, vs = quantize_kv(v_new)
+        update_kv_cache(k_cache.q, v_cache.q, kq, vq, offset)
+        if k_cache.q.dim() == 3:                # flat planes, (B, Hkv, S) scales
+            _update_scales_flat(k_cache.s, v_cache.s, ks.transpose(1, 2),
+                                vs.transpose(1, 2), offset)
+        else:
+            _update_scales(k_cache.s, v_cache.s, ks, vs, offset)
+        return k_cache, v_cache
+    _write_rows(k_cache, k_new.reshape(B, T, *k_cache.shape[2:]), offset)
+    _write_rows(v_cache, v_new.reshape(B, T, *v_cache.shape[2:]), offset)
     return k_cache, v_cache
+
+
+def _update_scales_flat(ks_c, vs_c, ks, vs, offset):
+    """Write (B, Hkv, T) scale slabs into (B, Hkv, S) planes at column
+    ``offset``, in place."""
+    _write_rows(ks_c, ks, offset, axis=2)
+    _write_rows(vs_c, vs, offset, axis=2)
+    return ks_c, vs_c
+
+
+def _update_scales(ks_c, vs_c, ks, vs, offset):
+    """Write (B, T, Hkv) scale rows into (B, S, Hkv) planes, in place."""
+    _write_rows(ks_c, ks, offset)
+    _write_rows(vs_c, vs, offset)
+    return ks_c, vs_c
 
 
 def _bf16_inputs(q, k_cache, v_cache) -> bool:

@@ -6,11 +6,12 @@ all-zero vector gets scale 0 and values 0. Attention never dequantizes:
 the K scale multiplies the score matrix and the V scale the softmax
 weights (``ops/attention.py``'s int8 paths).
 
-``QuantKV`` pairs an int8 plane with its scales. The paged pools gather
-to the FLAT form: ``q`` (B, S, Hkv*D) int8 with kv-head-major scales
-``s`` (B, Hkv, S). The dense ``QuantKV`` cache (``--cache-dtype int8``
-without ``--paged``) is not in this slice of the port (ROADMAP.md queue 1,
-the dense int8 cache).
+``QuantKV`` pairs an int8 plane with its scales. The dense int8 cache
+(``models/llama.init_cache(dtype="int8")``, ``--cache-dtype int8``
+without ``--paged``) is a list of per-layer FLAT pairs: ``q`` (B, S,
+Hkv*D) int8 with kv-head-major scales ``s`` (B, Hkv, S), written by
+``ops/attention.update_kv_cache``; the paged pools gather to the same
+form.
 """
 
 from __future__ import annotations

@@ -2,21 +2,24 @@
 
 The reference flags -m/--model, -p/--prompt, -s/--tokenizer,
 -t/--temperature, -n/--num_tokens (total incl. prompt echo), -v/--verbose,
-plus --dtype f32|bf16|native, --cache-dtype f32|bf16, --seed, --max-seq,
---rope, --fold-norms, --scan (the CUDA-graph decode loop), --spec K and
---draft GGUF (speculative decoding), --timings (the five-bucket report)
-and --device (cuda unless told otherwise). Any other flag of the JAX
-package's CLI is refused by argparse. Output contract
+plus --dtype f32|bf16|native, --cache-dtype f32|bf16|int8, --seed,
+--max-seq, --rope, --fold-norms, --scan (the CUDA-graph decode loop), --spec
+K and --draft GGUF (speculative decoding), --timings (the five-bucket
+report), --profile DIR (a torch.profiler trace of the generation, as a
+Chrome trace in DIR) and --device (cuda unless told otherwise). Any other
+flag of the JAX package's CLI is refused by argparse. Output contract
 (``tpu_llm/runtime/cli.py``): the streamed raw token bytes (with --scan,
 the decoded text at the end instead), then a blank line, the inference
-time, the decode tokens/second and the TTFT, then the timing report or a
-line that names --timings.
+time, the decode tokens/second and the TTFT, then the timing report, the
+line that names the trace, or a line that names --timings and --profile.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 import time
 
@@ -34,7 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="total tokens incl. prompt echo (reference -n)")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16", "native"])
-    p.add_argument("--cache-dtype", default="f32", choices=["f32", "bf16"])
+    p.add_argument("--cache-dtype", default="f32", choices=["f32", "bf16", "int8"],
+                   help="KV cache storage; int8 = per-(token, head) scaled planes "
+                        "(ops/kv_cache.py)")
     p.add_argument("--seed", type=int, default=None,
                    help="sampling seed (default: time-based)")
     p.add_argument("--fold-norms", action="store_true",
@@ -57,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after generation, measure and print the reference's five "
                         "per-token timing buckets (qkv/rope/attention/ffn/classifier), "
                         "each slope-timed at the run's decode shapes")
+    p.add_argument("--profile", default="", metavar="DIR",
+                   help="write a torch.profiler trace of the generation (Chrome "
+                        "trace format, trace.json) into DIR")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
 
@@ -100,7 +108,8 @@ def main(argv=None) -> int:
         print(f"loaded weights in {time.perf_counter() - t_load:.2f}s", file=sys.stderr)
 
     max_seq = args.max_seq or min(cfg.seq_len, max(args.num_tokens + 8, 64))
-    cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.cache_dtype]
+    cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                   "int8": "int8"}[args.cache_dtype]
     bos_id = tokenizer.bos_id if getattr(tokenizer, "add_bos", True) else -1
     adapter = ModelAdapter.llama(cfg, cache_dtype=cache_dtype, bos_id=bos_id,
                                  device=device)
@@ -129,9 +138,20 @@ def main(argv=None) -> int:
         out.flush()
 
     seed = args.seed if args.seed is not None else int(time.time_ns() % (2**31))
-    res = engine.generate(prompt_ids, n_total=n, temperature=args.temperature,
-                          seed=seed, stream=None if args.scan else stream,
-                          use_scan=args.scan, speculative_k=args.spec, draft=draft_engine)
+    profiler = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        profiler = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+    with profiler:
+        res = engine.generate(prompt_ids, n_total=n, temperature=args.temperature,
+                              seed=seed, stream=None if args.scan else stream,
+                              use_scan=args.scan, speculative_k=args.spec,
+                              draft=draft_engine)
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     if args.scan:
         out.write(tokenizer.decode(res.tokens))
         out.flush()
@@ -147,8 +167,11 @@ def main(argv=None) -> int:
         res.phase_times = measure_phase_times(params, cfg, batch=1, pos=len(res.tokens),
                                               max_seq=max_seq)
         print(format_report(res.phase_times))
-    else:
-        print(" Timings: pass --timings for the per-bucket report")
+    if args.profile:
+        print(f" Timings: torch.profiler trace written to {args.profile}")
+    elif not args.timings:
+        print(" Timings: pass --timings for the per-bucket report, or "
+              "--profile DIR for a torch.profiler trace")
     return 0
 
 

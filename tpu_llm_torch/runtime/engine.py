@@ -50,7 +50,8 @@ from tpu_llm_torch.ops.sampling import greedy, select_token, select_token_counte
 
 @dataclasses.dataclass
 class ModelAdapter:
-    """Uniform model interface for the engine.
+    """Uniform model interface for the engine. ``ModelAdapter.llama``'s
+    ``cache_dtype``: f32, bf16 or "int8" (QuantKV planes).
 
     apply(params, tokens (B, T), state, offset) -> (hidden (B, T, E), state);
       offset an int or a (B,) tensor of per-row positions
@@ -75,11 +76,6 @@ class ModelAdapter:
               device="cuda") -> "ModelAdapter":
         from tpu_llm_torch.models import llama as M
 
-        if cache_dtype in ("int8", torch.int8):
-            raise NotImplementedError(
-                "a dense int8 KV cache is not in this slice of tpu_llm_torch "
-                "(ROADMAP.md queue 1: the dense int8 QuantKV cache); int8 pools "
-                "serve through the paged engine")
         return cls(
             apply=lambda params, tokens, state, offset: M.forward(
                 params, cfg, tokens, state, offset),

@@ -1,6 +1,5 @@
 """Paged-KV continuous batching with prefix caching
-(``tpu_llm/runtime/paged_engine.py``, without speculation or a draft
-model).
+(``tpu_llm/runtime/paged_engine.py``).
 
 Each slot's sequence maps onto fixed-size blocks of shared per-layer
 pools through an int32 block table (ops/paged_kv.py), so device memory
@@ -18,6 +17,14 @@ then a bucketed last piece. Decode growth maps a fresh block when the
 next write crosses into an unmapped one (``_pre_dispatch``). A finished
 request's full blocks go into the prefix cache, and its slot's table row
 is pointed at the null block, where the dead slot's garbage writes land.
+
+Speculation (``speculative_k``, ``draft``) is BatchEngine's: the verify
+forward (B, k+1) writes through the block table, so growth maps blocks up
+to pos + k (within the admission reservation); window rows past the
+mapped region write into the null block, and no used chain entry attends
+them. A draft model keeps its own dense cache. A T > 1 verify goes
+through the gather path (the paged decode kernels serve T = 1 only), the
+reference's cost cliff for --paged with --spec.
 
 Llama only. One-query steps on the card run the paged decode kernels (K5,
 or K6 for int8 pools); long prefill chunks the flash prefill kernel (K4).
@@ -59,7 +66,7 @@ class PagedEngine(BatchEngine):
                  block_size: int = 16, max_seq: Optional[int] = None,
                  eos_id: int = 2, bos_id: int = 1, cache_dtype=torch.float32,
                  prefix_caching: bool = True, prefill_chunk: Optional[int] = 512,
-                 device="cuda"):
+                 speculative_k: int = 0, draft=None, device="cuda"):
         quantized = cache_dtype in ("int8", torch.int8)
         if quantized and block_size < 32:
             # the reference pads int8 pools to 32-row tiles; the port keeps
@@ -87,6 +94,7 @@ class PagedEngine(BatchEngine):
         self._prefix_caching = prefix_caching
         self._next_rid = 0
         self.state = self._fresh_state()
+        self._init_spec(speculative_k, draft, cfg.vocab_size)
         self._reset_common()
         self._reset_blocks()
 
@@ -169,6 +177,13 @@ class PagedEngine(BatchEngine):
         logits = M.lm_head(self.params, self.cfg, hidden)[:, 0, :]
         return select_tokens(logits, temps, generators)
 
+    def _verify_logits(self, tokens, offsets) -> torch.Tensor:
+        from tpu_llm_torch.models import llama as M
+
+        hidden = self._forward(tokens, self.state["table"], self.state["lengths"],
+                               offsets)
+        return M.lm_head(self.params, self.cfg, hidden)
+
     def _set_slot_meta(self, idx: int, blocks: List[int], length: int) -> None:
         """Reset one slot's whole table row (stale entries of the previous
         occupant must not stay mapped) and its valid length."""
@@ -236,18 +251,26 @@ class PagedEngine(BatchEngine):
             first = self._prefill_tail(idx, to_device(toks, torch.long, self.device),
                                        off, len(tail) - 1, req.temperature,
                                        slot.generator)
+            if self._draft is not None:      # the draft prefills the whole prompt
+                dtoks = np.zeros((1, min(_next_bucket(n_in), self.max_seq)), np.int64)
+                dtoks[0, :n_in] = input_ids
+                self._draft_prefill(idx, to_device(dtoks, torch.long, self.device))
             if self.prefix is not None:
                 self.prefix.insert(input_ids, bs, blocks, digests=digs)
             self._seat(idx, slot, first, n_in)
 
     def _pre_dispatch(self, live) -> None:
         """Map a fresh block for every slot whose next write crosses into
-        unmapped territory (growth within the admission reservation)."""
+        unmapped territory (growth within the admission reservation). With
+        speculation the mapped rows reach every position a draft could be
+        accepted at, pos + k, clamped to the reserved span: window rows
+        past it are rejected by construction and write into the null
+        block."""
         rows, cols, vals = [], [], []
         for idx, _ in live:
             slot = self.slots[idx]
             blocks = self._slot_blocks[idx]
-            reach = min(slot.pos, self._slot_span[idx])
+            reach = min(slot.pos + self.spec_k, self._slot_span[idx])
             while reach // self.block_size >= len(blocks):
                 (bid,) = self.allocator.alloc(1, reserved=True)
                 self._slot_reserved[idx] -= 1

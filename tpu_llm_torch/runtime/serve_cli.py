@@ -5,12 +5,14 @@ Offline batched serving (``tpu_llm/runtime/serve_cli.py``): many prompts
 engines; requests are admitted into slots as others finish, each prompt
 prefills in one forward, and decode runs one batched step for every live
 slot. ``--paged`` takes the paged KV pool with automatic prefix caching;
-``--cache-dtype int8`` (with ``--paged``) stores the pools in int8.
+``--cache-dtype int8`` stores the dense planes or the paged pools in int8;
+``--spec K`` verifies up to K drafted tokens a greedy slot a forward
+(prompt lookup, or the ``--draft GGUF`` model's greedy tokens).
 
 Flags: -m -p -f -n -t -s, --dtype f32|bf16|native, --cache-dtype
 f32|bf16|int8, --batch, --max-seq, --paged, --block-size, --n-blocks,
---stop-at-eos, --seed, -v and --device (cuda unless told otherwise). Any
-other flag of the JAX package's front end (--spec, --draft, --lora, --tp,
+--spec, --draft, --stop-at-eos, --seed, -v and --device (cuda unless told
+otherwise). Any other flag of the JAX package's front end (--lora, --tp,
 --dp, --top-k, --top-p, --min-p) is refused by argparse.
 
 Output contract: one JSON object a request on stdout (prompt,
@@ -48,6 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="paged block size (default 16; 32 for int8 pools)")
     p.add_argument("--n-blocks", type=int, default=None,
                    help="paged pool size (default: batch x max_seq worth)")
+    p.add_argument("--draft", default=None, metavar="GGUF",
+                   help="small same-vocabulary draft model for two-model "
+                        "speculation (needs --spec K)")
+    p.add_argument("--spec", type=int, default=0, metavar="K",
+                   help="speculative drafts per step (greedy slots)")
     p.add_argument("--stop-at-eos", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("-v", "--verbose", action="store_true")
@@ -83,6 +90,13 @@ def make_engine(args, params, cfg, tokenizer, max_seq, device):
     bos_id = (getattr(tokenizer, "bos_id", 1)
               if getattr(tokenizer, "add_bos", True) else -1)
     eos_id = getattr(tokenizer, "eos_id", 2)
+    draft = None
+    if args.draft:
+        from tpu_llm_torch.models.llama import load_gguf
+
+        dparams, dcfg = load_gguf(args.draft, dtype_policy=args.dtype, device=device)
+        draft = (dparams, ModelAdapter.llama(dcfg, cache_dtype=torch.bfloat16,
+                                             bos_id=bos_id, device=device))
     if args.paged:
         from tpu_llm_torch.runtime.paged_engine import PagedEngine
 
@@ -90,11 +104,12 @@ def make_engine(args, params, cfg, tokenizer, max_seq, device):
         n_blocks = args.n_blocks or (1 + args.batch * ((max_seq + bs - 1) // bs))
         return PagedEngine(params, cfg, batch=args.batch, n_blocks=n_blocks,
                            block_size=bs, max_seq=max_seq, cache_dtype=cache_dtype,
-                           bos_id=bos_id, eos_id=eos_id, device=device)
+                           speculative_k=args.spec, bos_id=bos_id, eos_id=eos_id,
+                           draft=draft, device=device)
     adapter = ModelAdapter.llama(cfg, cache_dtype=cache_dtype, bos_id=bos_id,
                                  device=device)
     return BatchEngine(params, adapter, batch=args.batch, max_seq=max_seq,
-                       eos_id=eos_id)
+                       eos_id=eos_id, speculative_k=args.spec, draft=draft)
 
 
 def main(argv=None) -> int:
@@ -106,10 +121,6 @@ def main(argv=None) -> int:
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
-        return 1
-    if args.cache_dtype == "int8" and not args.paged:
-        print("--cache-dtype int8 needs --paged in this slice of tpu_llm_torch "
-              "(ROADMAP.md queue 1: the dense int8 QuantKV cache)", file=sys.stderr)
         return 1
     device = torch.device(args.device)
 
@@ -186,8 +197,11 @@ def main(argv=None) -> int:
         "ttft_p50_s": round(ttfts[len(ttfts) // 2], 4),
         "engine_steps": steps,
         "engine": "paged" if args.paged else "dense",
-        "speculative_k": 0,
+        "speculative_k": args.spec,
     }
+    if args.spec and engine.stats["spec_forwards"]:
+        summary["spec_tokens_per_forward"] = round(
+            engine.stats["spec_tokens"] / engine.stats["spec_forwards"], 2)
     if args.paged and engine.prefix is not None and engine.prefix.queries:
         summary["prefix_cache_hit_rate"] = round(
             engine.prefix.hits / engine.prefix.queries, 3)
