@@ -64,7 +64,11 @@ Phases, one JSON line each:
    card and on the CPU: the greedy text must be identical, and the card
    runs must launch K1 (and K7); then `--profile DIR` on the card, whose
    Chrome trace must hold K1's kernel by name (up to three runs for a
-   trace with kernels in it; none fails).
+   trace with kernels in it; none fails). Phase cli_filters: `llm` with
+   --top-k 40 --top-p 0.9 --min-p 0.05 -t 0.8 --repeat-penalty 1.1 on the
+   tiny Q4_0 file, card and CPU: both run, and the tokens the filters keep
+   at the first sampled step are the same set on both (the sampled
+   streams, one generator a device, are not compared).
    Phase scan_cli: --scan (the captured CUDA graph), --spec 3, --scan
    --spec 3 and --spec 3 --draft on a tiny Q4_0 file with the bigram bias,
    and --scan on a tiny Q8_0 file with TPU_LLM_FFN_MEGAKERNEL set (K7
@@ -72,7 +76,9 @@ Phases, one JSON line each:
 4. serve_cli — the port's `llm-serve` on the tiny f32 GGUF and, native,
    the tiny Q4_K and Q6_K ones: dense, --paged, --paged --cache-dtype
    int8, dense --cache-dtype int8, --spec 3 and --spec 3 --draft (the file
-   itself), on the card and on the CPU: the same completions.
+   itself), on the card and on the CPU: the same completions. Phase
+   serve_cli_filters: every request with the same sampling filters, card
+   and CPU: each prompt's first-step kept set equal.
 5. full width — a TinyLlama-1.1B-shaped Q4_0 model (22 layers, ~0.65 GB
    packed) from seeded random weights built on the card, entered at
    Engine.generate: a 16-token prompt + 128 greedy tokens, a 512-token
@@ -87,6 +93,25 @@ Phases, one JSON line each:
    and launches a step of K5 / K6 (`paged_decode`) and of every attention
    kernel (`attention`); one batched decode step's logits held against
    the plain path.
+6b. server — `llm-server` (tpu_llm_torch/runtime/server.py) in this
+   process on an ephemeral localhost port over the phase-5 weights, with a
+   32000-id character vocabulary (one token a character), first on the
+   PagedEngine (bf16 pools, block 16), then on the dense BatchEngine (bf16
+   cache), batch 8, max_seq 1024: 16 concurrent greedy /v1/completions
+   (serve_requests' prompts, 8 sharing a 256-token prefix; 64 tokens
+   each) from client threads, equal to a fresh engine driven directly with
+   the same requests in the server's order of admission; one streamed
+   completion equal to its blocking twin and ending in [DONE]; on the
+   paged engine also a zephyr chat completion, logprobs 5 (each chosen
+   token's logprob within 4e-2 * max|logit| of the plain path's
+   log-softmax, the top-1 alternative the token itself), top_k 1 at
+   temperature 1 equal to greedy, repetition_penalty 1.3 equal to a
+   plain-path loop that applies the penalty step by step over 16 tokens,
+   and /v1/embeddings of a 512-token input (cosine >= 0.999 against the
+   plain path). The phase's launches must hold K1, K5 and K4 (paged;
+   K4 from the long prefills) and K2 (dense); it prints the client's
+   aggregate tokens/s, the server's TTFT p50 and the engine's own tokens/s
+   on the same requests, beside the card's name and power limit.
 7. megakernel — the phase-5 model with TPU_LLM_FFN_MEGAKERNEL set:
    Engine.generate (16 + 128), one decode step's launches (22 ffn_fused),
    a decode step's logits and the dense BatchEngine's batch-8 decode
@@ -880,6 +905,66 @@ def cli_card_vs_cpu(path: str, dtype: str, extra=(), must=()):
     return row
 
 
+# the sampling controls' runs of the cli and serve_cli phases
+FILTER_FLAGS = ["--top-k", "40", "--top-p", "0.9", "--min-p", "0.05", "-t", "0.8"]
+
+
+def kept_sets_step0(torch, path: str, dtype: str, texts, device: str,
+                    repeat_penalty: float = 1.0):
+    """The tokens FILTER_FLAGS keep at a prompt's first sampled step (the
+    filtered distribution's support after the repetition penalty over
+    BOS + prompt), one set a prompt, computed on ``device``."""
+    import numpy as np
+
+    from tpu_llm_torch.io.gguf import GGUFFile
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.ops.sampling import filtered_probs
+    from tpu_llm_torch.runtime.batching import _apply_penalties
+    from tpu_llm_torch.tokenizers.bpe import BPETokenizer
+
+    gguf = GGUFFile(path)
+    params, cfg = M.load_gguf(gguf, dtype_policy=dtype, device=device)
+    tok = BPETokenizer.from_gguf(gguf)
+    out = []
+    with torch.inference_mode():
+        for text in texts:
+            ids = [1] + tok.encode(text)
+            cache = M.init_cache(cfg, 1, 64, torch.float32, device)
+            x, _ = M.forward(params, cfg, torch.tensor([ids], device=device), cache, 0)
+            logits = M.lm_head(params, cfg, x[:, -1:])[:, 0]
+            counts = torch.from_numpy(np.bincount(ids, minlength=cfg.vocab_size)[None]).to(device)
+            one = lambda v: torch.tensor([v], device=device)  # noqa: E731
+            logits = _apply_penalties(logits, counts, one(0.0), one(0.0), one(repeat_penalty))
+            probs = filtered_probs(logits, 0.8, 40, 0.9, 0.05)
+            out.append(sorted(int(i) for i in torch.nonzero(probs[0] > 0).flatten()))
+    return out
+
+
+def check_cli_filters(torch, path: str):
+    """`llm` with the sampling filters and a repetition penalty on the card
+    and on the CPU: both run (K1 launched on the card), and both keep the
+    same tokens at the first sampled step; the sampled streams (one
+    generator on each device) are not compared."""
+    args = ["-m", path, "-p", "abc", "-n", "12", "--dtype", "native", *FILTER_FLAGS,
+            "--repeat-penalty", "1.1", "--seed", "3"]
+    reset_counts()
+    card = run_cli(args + ["--device", "cuda"]).split(b"\n")[0]
+    counts = read_counts()
+    cpu = run_cli(args + ["--device", "cpu"]).split(b"\n")[0]
+    kept = {d: kept_sets_step0(torch, path, "native", ["abc"], d, 1.1) for d in ("cuda", "cpu")}
+    row = dict(model=os.path.basename(path), flags=args[6:], cuda=card.decode(errors="replace"),
+               cpu=cpu.decode(errors="replace"), kept_step0=kept["cuda"],
+               kept_equal=kept["cuda"] == kept["cpu"], launches={k: v for k, v in counts.items()
+                                                                 if v})
+    emit("cli_filters", **row)
+    if not (card.startswith(b"abc") and cpu.startswith(b"abc") and len(card) > 3):
+        fail(f"llm with the sampling filters printed no stream: {row}")
+    if kept["cuda"] != kept["cpu"] or len(kept["cuda"][0]) < 2:
+        fail(f"llm's first-step kept set differs between card and CPU: {row} {kept}")
+    if counts["qmatmul"] <= 0:
+        fail("llm with the sampling filters: qmatmul was never launched")
+
+
 def check_cli(tmp: str):
     results = []
     for quant in (False, True):
@@ -898,6 +983,9 @@ def check_cli(tmp: str):
     with switch("TPU_LLM_FFN_MEGAKERNEL"):
         results.append(cli_card_vs_cpu(os.path.join(tmp, "tiny_q4_0.gguf"), "native",
                                        must=("qmatmul", "ffn_fused")))
+    import torch
+
+    check_cli_filters(torch, os.path.join(tmp, "tiny_q4_0.gguf"))
     # --cache-dtype int8 (the dense QuantKV cache), and --profile DIR: a
     # Chrome trace that holds the card's kernels by name
     results.append(cli_card_vs_cpu(os.path.join(tmp, "tiny_q4_0.gguf"), "native",
@@ -991,6 +1079,24 @@ def check_serve_cli(tmp: str):
                 fail(f"serve_cli completions differ between card and CPU: {row}")
             if dtype == "native" and launched <= 0:
                 fail(f"serve_cli {row['model']} {mode}: qmatmul was never launched")
+    # each request with the sampling filters, card and CPU: the same tokens
+    # kept at every prompt's first sampled step (streams not compared)
+    import torch
+
+    path, prompts = files[0][0], ["abc", "ab", "abc abc ab", "abc abc b"]
+    argv = ["-m", path, *[a for p in prompts for a in ("-p", p)], "-n", "6", "--batch", "2",
+            "--dtype", "f32", *FILTER_FLAGS]
+    card, _ = run_serve_cli(argv + ["--device", "cuda"])
+    cpu, _ = run_serve_cli(argv + ["--device", "cpu"])
+    kept = {d: kept_sets_step0(torch, path, "f32", prompts, d) for d in ("cuda", "cpu")}
+    row = dict(model=os.path.basename(path), flags=FILTER_FLAGS,
+               cuda=[r["completion"] for r in card], cpu=[r["completion"] for r in cpu],
+               kept_step0=kept["cuda"], kept_equal=kept["cuda"] == kept["cpu"])
+    emit("serve_cli_filters", **row)
+    if len(card) != 4 or any(r["n_tokens"] != 6 for r in card + cpu):
+        fail(f"serve_cli with the sampling filters: {row}")
+    if kept["cuda"] != kept["cpu"] or any(len(k) < 2 for k in kept["cuda"]):
+        fail(f"serve_cli's first-step kept sets differ between card and CPU: {row}")
 
 
 # -- phase 5: full width ---------------------------------------------------------
@@ -1417,6 +1523,329 @@ def serve_full_width(torch, params, cfg):
         decode_logits_vs_plain(torch, eng, params, cfg, requests, label)
         del eng
         torch.cuda.empty_cache()
+    return dict(runs=runs, total=total)
+
+
+# -- phase 6b: llm-server over HTTP at full width ---------------------------------------
+
+SERVER_NEW = 64          # max_tokens of the phase's completions
+# the characters the phase's prompts are written in: one token each in
+# server_tokenizer's vocabulary
+SERVER_CHARS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 .,;:!?-"
+
+
+def server_tokenizer(torch, vocab: int):
+    """A BPE vocabulary of ``vocab`` ids for the random model: <unk>, <s>,
+    </s>, zephyr's <|user|> / <|assistant|> (control tokens), one token a
+    character of SERVER_CHARS (no merges: a prompt of n characters is n
+    tokens), and fillers that no text encodes to (they start with \\x01)
+    but that decode, so every id the model emits has text."""
+    from tpu_llm_torch.tokenizers.bpe import BPETokenizer
+
+    head = [b"<unk>", b"<s>", b"</s>", b"<|user|>", b"<|assistant|>", b"\n"]
+    chars = [c.encode() for c in SERVER_CHARS]
+    tokens = head + chars + [b"\x01%05d" % i for i in range(vocab - len(head) - len(chars))]
+    types = [2, 3, 3, 3, 3] + [1] * (vocab - 5)
+    return BPETokenizer(tokens, [0.0] * vocab, token_types=types)
+
+
+def server_prompts(cfg):
+    """serve_requests' 16 prompts as text: 8 sharing a 256-token prefix
+    with 32-200-token tails, 8 distinct of 64-512 tokens."""
+    n = len(SERVER_CHARS)
+    return ["".join(SERVER_CHARS[t % n] for t in p) for p in serve_requests(cfg)]
+
+
+def http(port: int, path: str, body=None, timeout: float = 300.0):
+    """(status, JSON) of a GET (body None) or POST to the local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_stream(port: int, path: str, body, timeout: float = 300.0):
+    """(events, last data line) of a stream=true POST."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events, last = [], None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            line = line.strip()
+            if line.startswith(b"data: "):
+                last = line
+                if line != b"data: [DONE]":
+                    events.append(json.loads(line[6:]))
+    return events, last
+
+
+def concurrent_completions(port: int, prompts, max_tokens: int):
+    """Every prompt as a greedy /v1/completions from a client thread of its
+    own, all at once: (responses, client wall seconds)."""
+    import threading
+
+    out = [None] * len(prompts)
+
+    def go(i):
+        out[i] = http(port, "/v1/completions", {"prompt": prompts[i], "max_tokens": max_tokens})
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(r is None or r[0] != 200 for r in out):
+        fail(f"server: a concurrent completion failed: {[r and r[0] for r in out]}")
+    return [r[1] for r in out], wall
+
+
+def offline_tokens(torch, make, warm, reqs):
+    """The token lists of ``reqs`` ((prompt ids, max_new) in the order the
+    server admitted them) through a fresh engine driven directly after the
+    server's warm-up request ``warm`` (its blocks stay in a paged engine's
+    prefix cache), and the engine's tokens/s over them."""
+    from tpu_llm_torch.runtime.batching import Request
+
+    eng = make()
+    eng.submit(Request(prompt=warm[0], max_new=warm[1]))
+    eng.run()
+    subs = [eng.submit(Request(prompt=ids, max_new=n)) for ids, n in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = [r.tokens for r in subs]
+    del eng
+    torch.cuda.empty_cache()
+    return toks, sum(len(t) for t in toks) / wall
+
+
+class Server:
+    """serve() in this process on an ephemeral port, its HTTP loop on a
+    thread; ``close`` stops both and fails the smoke if the serving loop
+    died or restarted on the way."""
+
+    def __init__(self, engine, tokenizer, embedder=None):
+        import threading
+
+        from tpu_llm_torch.runtime.server import serve
+
+        self.httpd, self.loop = serve(engine, tokenizer, "127.0.0.1", 0, max_new_cap=1022,
+                                      timeout_s=300.0, model_name="tinyllama-1.1b-random",
+                                      embedder=embedder)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self, label: str):
+        alive, restarts = self.loop.is_alive(), self.loop.n_restarts
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.loop.shutdown()
+        self.thread.join(timeout=30)
+        if not alive or restarts or self.loop.is_alive() or self.thread.is_alive():
+            fail(f"server {label}: serving loop alive={alive} restarts={restarts}, "
+                 f"stopped={not self.loop.is_alive()}")
+
+
+def plain_sequence_logits(torch, params, cfg, ids):
+    """(T, V) logits of every position of ``ids`` through the plain path
+    (one prefill over a bf16 dense cache)."""
+    from tpu_llm_torch.models import llama as M
+
+    with torch.inference_mode(), plain_path():
+        cache = M.init_cache(cfg, 1, 1024, torch.bfloat16, "cuda")
+        x, _ = M.forward(params, cfg, torch.tensor([ids], device="cuda"), cache, 0)
+        return M.lm_head(params, cfg, x)[0]
+
+
+def plain_penalised_greedy(torch, params, cfg, ids, n: int, rp: float):
+    """``n`` greedy tokens after ``ids`` with the repetition penalty over
+    the text so far applied before every argmax (batching._apply_penalties),
+    step by step through the plain path; and the smallest top-2 gap."""
+    import numpy as np
+
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.batching import _apply_penalties
+
+    one = lambda v: torch.tensor([v], device="cuda")  # noqa: E731
+    out, gaps = [], []
+    with torch.inference_mode(), plain_path():
+        cache = M.init_cache(cfg, 1, 1024, torch.bfloat16, "cuda")
+        x, cache = M.forward(params, cfg, torch.tensor([ids], device="cuda"), cache, 0)
+        logits = M.lm_head(params, cfg, x[:, -1:])[:, 0]
+        ctx = list(ids)
+        for i in range(n):
+            counts = torch.from_numpy(np.bincount(ctx, minlength=cfg.vocab_size)[None]).to("cuda")
+            slog = _apply_penalties(logits, counts, one(0.0), one(0.0), one(rp))
+            top2 = torch.topk(slog[0], 2).values
+            gaps.append((top2[0] - top2[1]).item())
+            tok = int(slog[0].argmax())
+            out.append(tok)
+            ctx.append(tok)
+            if i + 1 < n:
+                logits, cache = M.decode_step(params, cfg, torch.tensor([tok], device="cuda"),
+                                              cache, len(ctx) - 1)
+    return out, min(gaps)
+
+
+def server_full_width(torch, params, cfg, engine_rows):
+    """Phase server: llm-server over HTTP in this process at TinyLlama-1.1B
+    width (the phase-5 weights), on the paged engine (bf16 pools, block
+    16) and then the dense engine (bf16 cache), batch 8, max_seq 1024."""
+    from tpu_llm_torch.runtime.batching import BatchEngine
+    from tpu_llm_torch.runtime.engine import ModelAdapter
+    from tpu_llm_torch.runtime.paged_engine import PagedEngine
+    from tpu_llm_torch.runtime.server import Embedder
+
+    tok = server_tokenizer(torch, cfg.vocab_size)
+    prompts = server_prompts(cfg)
+    ids = [tok.encode(p) for p in prompts]
+    if [len(i) for i in ids] != [len(p) for p in prompts]:
+        fail("server: the phase's prompts do not encode one token a character")
+    engines = {
+        # a pool that never evicts: the prefix cache's hits depend only on
+        # the order of admission, which the offline run repeats
+        "paged_bf16_bs16": (lambda: PagedEngine(params, cfg, batch=8, block_size=16,
+                                                max_seq=1024, n_blocks=1 + 16 * (1024 // 16),
+                                                cache_dtype=torch.bfloat16, device="cuda"),
+                            ("qmatmul", "paged_flash_decode_attention", "flash_gqa_attention")),
+        "dense_bf16": (lambda: BatchEngine(params, ModelAdapter.llama(
+            cfg, torch.bfloat16, bos_id=1, device="cuda"), batch=8, max_seq=1024),
+            ("qmatmul", "flash_decode_attention")),
+    }
+    runs, total = {}, {n: 0 for n in counters()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    for label, (make, must) in engines.items():
+        paged = label.startswith("paged")
+        eng = make()
+        embedder = Embedder(params, ModelAdapter.llama(cfg, device="cuda"), max_len=512) \
+            if paged else None
+        srv = Server(eng, tok, embedder)
+        http(srv.port, "/v1/completions", {"prompt": prompts[1][:64], "max_tokens": 8})  # warm-up
+        row = dict(engine=label, nvidia_smi=smi)
+        reset_counts()
+        # 16 concurrent greedy completions
+        outs, wall = concurrent_completions(srv.port, prompts, SERVER_NEW)
+        gen = sum(o["n_tokens"] for o in outs)
+        ttfts = sorted(o["ttft_s"] for o in outs)
+        # TTFT as the server reports it (ttft_s: from the request's arrival
+        # in the serving loop's queue to its first token)
+        row.update(requests=len(outs), generated_tokens=gen, client_wall_s=wall,
+                   client_tokens_per_s=gen / wall,
+                   server_ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3)
+        # one streamed completion against its blocking twin
+        events, last = http_stream(srv.port, "/v1/completions",
+                                   {"prompt": prompts[3], "max_tokens": 32})
+        _, blocking = http(srv.port, "/v1/completions", {"prompt": prompts[3], "max_tokens": 32})
+        streamed = [e["token"] for e in events[:-1]]
+        row["stream"] = dict(tokens=len(streamed), equal=streamed == blocking["tokens"],
+                             done=last == b"data: [DONE]")
+        if not (row["stream"]["equal"] and row["stream"]["done"] and len(streamed) == 32):
+            fail(f"server {label}: the stream differs from the blocking response: {row}")
+        # the order the server admitted the requests in (rid order), for
+        # the offline run
+        order = sorted(range(len(outs)), key=lambda i: int(outs[i]["id"].split("-")[1]))
+        checks = {}
+        if paged:
+            chat = [{"role": "user", "content": prompts[5][:40]}]
+            st, ch = http(srv.port, "/v1/chat/completions",
+                          {"messages": chat, "max_tokens": 16, "chat_template": "zephyr"})
+            checks["chat"] = dict(status=st, object=ch.get("object"),
+                                  finish=ch["choices"][0]["finish_reason"],
+                                  n_tokens=ch["n_tokens"])
+            if st != 200 or ch["object"] != "chat.completion" or \
+                    ch["choices"][0]["message"]["role"] != "assistant":
+                fail(f"server: chat completion {checks['chat']}")
+            # logprobs against the plain path's log-softmax
+            _, lp = http(srv.port, "/v1/completions",
+                         {"prompt": prompts[7][:200], "max_tokens": 16, "logprobs": 5})
+            ctx = [1] + tok.encode(prompts[7][:200]) + lp["tokens"]
+            plain = plain_sequence_logits(torch, params, cfg, ctx[:-1])[-len(lp["tokens"]):]
+            want = torch.log_softmax(plain.float(), -1)
+            got_lp = lp["choices"][0]["logprobs"]
+            errs, tols, top1 = [], [], []
+            for j, t in enumerate(lp["tokens"]):
+                errs.append(abs(got_lp["token_logprobs"][j] - want[j, t].item()))
+                tols.append(4e-2 * plain[j].abs().max().item())
+                tops = got_lp["top_logprobs"][j]
+                top1.append(max(tops, key=tops.get) == got_lp["tokens"][j]
+                            and len(tops) == 5)
+            checks["logprobs"] = dict(tokens=len(errs), max_err=max(errs), min_tol=min(tols),
+                                      top1_is_token=all(top1))
+            if not (all(e <= t for e, t in zip(errs, tols)) and all(top1)):
+                fail(f"server: logprobs differ from the plain path: {checks['logprobs']}")
+            # top_k 1 at temperature 1 is greedy
+            _, k1 = http(srv.port, "/v1/completions",
+                         {"prompt": prompts[3], "max_tokens": 32, "temperature": 1.0,
+                          "seed": 4, "top_k": 1})
+            checks["top_k_1"] = dict(equal_greedy=k1["tokens"] == blocking["tokens"])
+            if k1["tokens"] != blocking["tokens"]:
+                fail("server: top_k 1 at temperature 1 differs from greedy")
+            # the repetition penalty against a plain-path loop
+            _, pen = http(srv.port, "/v1/completions",
+                          {"prompt": prompts[9][:100], "max_tokens": 16,
+                           "repetition_penalty": 1.3})
+            want_pen, gap = plain_penalised_greedy(torch, params, cfg,
+                                                   [1] + tok.encode(prompts[9][:100]), 16, 1.3)
+            checks["repetition_penalty"] = dict(equal=pen["tokens"] == want_pen,
+                                                min_top2_gap=gap)
+            if pen["tokens"] != want_pen:
+                fail(f"server: repetition_penalty 1.3 differs from the plain loop: "
+                     f"{pen['tokens']} vs {want_pen} (smallest top-2 gap {gap})")
+            # embeddings of a 512-token input against the plain path
+            text = "".join(prompts)[:512]
+            before = read_counts()
+            st, emb = http(srv.port, "/v1/embeddings", {"input": text})
+            emb_counts = {k: v - before[k] for k, v in read_counts().items() if v - before[k]}
+            vec = torch.tensor(emb["data"][0]["embedding"], device="cuda")
+            with torch.inference_mode(), plain_path():
+                ref = torch.from_numpy(embedder.embed(tok.encode(text))).cuda()
+            cos = float(vec @ ref / (vec.norm() * ref.norm()))
+            checks["embeddings"] = dict(status=st, tokens=emb["usage"]["prompt_tokens"],
+                                        dim=len(emb["data"][0]["embedding"]), cosine=cos,
+                                        launches=emb_counts)
+            if st != 200 or not cos >= 0.999 or checks["embeddings"]["tokens"] != 512:
+                fail(f"server: embedding differs from the plain path: {checks['embeddings']}")
+        counts = read_counts()
+        row.update(checks=checks, launches=counts)
+        st, stats = http(srv.port, "/stats")
+        row["stats"] = stats
+        srv.close(label)
+        for k in must:
+            if counts[k] <= 0:
+                fail(f"server {label}: kernel {k} was never launched ({counts})")
+        for k, v in counts.items():
+            total[k] += v
+        del eng, srv
+        torch.cuda.empty_cache()
+        # the 16 completions against the engine driven directly
+        want, eng_tok_s = offline_tokens(torch, make, (tok.encode(prompts[1][:64]), 8),
+                                         [(ids[i], SERVER_NEW) for i in order])
+        got = [outs[i]["tokens"] for i in order]
+        same = [g == w for g, w in zip(got, want)]
+        row.update(offline_equal=all(same), offline_engine_tokens_per_s=eng_tok_s,
+                   serve_full_width_engine_tokens_per_s=engine_rows.get(label, {}).get(
+                       "tokens_per_s"))
+        emit("server", **row)
+        if not all(same):
+            fail(f"server {label}: completions differ from the offline engine run at "
+                 f"requests {[i for i, ok in zip(order, same) if not ok]}")
+        runs[label] = row
     return dict(runs=runs, total=total)
 
 
@@ -2085,6 +2514,7 @@ def main() -> int:
     sc = scan_full_width(torch, params, cfg)
     emit("scan_full_width", **{k: v for k, v in sc.items() if k != "runs"})
     sv = serve_full_width(torch, params, cfg)
+    hs = server_full_width(torch, params, cfg, sv["runs"])
     mk = megakernel_full_width(torch, params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -2092,7 +2522,7 @@ def main() -> int:
     kq = kquant_full_width(torch)
     torch.cuda.empty_cache()
     bc = bench_cli_full_width(torch)
-    phases = (fw, sc, sv, mk, f32, kq, bc)
+    phases = (fw, sc, sv, hs, mk, f32, kq, bc)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     def case(name, pick):

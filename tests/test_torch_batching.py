@@ -117,17 +117,6 @@ def test_sampled_stream_matches_single_stream(weights):
     assert r2.tokens == se.generate([5, 11, 3], n_new=6).tokens[3:]
 
 
-@pytest.mark.parametrize("field", [{"top_k": 5}, {"top_p": 0.9}, {"min_p": 0.1},
-                                   {"logprobs": True}, {"top_logprobs": 2},
-                                   {"frequency_penalty": 0.5},
-                                   {"repetition_penalty": 1.1},
-                                   {"logit_bias": {"3": 5.0}}])
-def test_controls_outside_the_slice_are_refused(weights, field):
-    _, te = engines(weights, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.submit(TB.Request(prompt=[5], max_new=2, **field))
-
-
 def test_reset_then_same_tokens(weights):
     _, te = engines(weights, 2)
     r1 = te.submit(TB.Request(prompt=[5, 9, 3], max_new=6))
@@ -251,3 +240,161 @@ def test_speculative_int8_cache(weights):
     plain = TB.BatchEngine(weights[1], TE.ModelAdapter.llama(
         TConfig(**CFG), cache_dtype="int8", device="cpu"), batch=2, max_seq=CFG["seq_len"])
     assert drive(plain, TB, script) == got
+
+
+def drive_reqs(eng, mod, script):
+    """``drive``, returning the requests themselves."""
+    reqs = []
+    for op, *a in script:
+        if op == "submit":
+            reqs.append(eng.submit(mod.Request(prompt=a[0], max_new=a[1], **a[2])))
+        elif op == "step":
+            eng.step()
+        elif op == "until_done":
+            while not reqs[a[0]].done:
+                eng.step()
+        elif op == "run":
+            eng.run()
+    return reqs
+
+
+def same_controls(got, want, lp_tol=1e-4):
+    """Equal tokens and top-N ids; logprobs within ``lp_tol``."""
+    for g, w in zip(got, want, strict=True):
+        assert g.tokens == w.tokens and g.done and w.done
+        np.testing.assert_allclose(g.token_logprobs, w.token_logprobs, atol=lp_tol, rtol=0)
+        assert len(g.token_logprobs) == (len(g.tokens) if g.logprobs or g.top_logprobs else 0)
+        assert g.top_ids == w.top_ids and len(g.top_ids) == (
+            len(g.tokens) if g.top_logprobs else 0)
+        np.testing.assert_allclose(np.asarray(g.top_lps).ravel(),
+                                   np.asarray(w.top_lps).ravel(), atol=lp_tol, rtol=0)
+
+
+# greedy requests with the controls: penalties, logit_bias, logprobs and
+# top_logprobs, next to plain requests, admitted mid-flight too
+CONTROL_SCRIPTS = {
+    "penalties": (2, [("submit", [5, 11, 5], 8, {"frequency_penalty": 0.8}),
+                      ("submit", [3, 3], 7, {"presence_penalty": 1.1,
+                                              "repetition_penalty": 1.4}),
+                      ("submit", [9, 2, 9, 2], 6, {}), ("run",)]),
+    "logit_bias": (2, [("submit", [5, 11], 6, {"logit_bias": {"4": 3.0, 7: -100}}),
+                       ("submit", [3], 5, {}),
+                       ("submit", [8, 8], 6, {"logit_bias": {"9": 100}}), ("run",)]),
+    "logprobs": (3, [("submit", [5, 11], 6, {"logprobs": True}),
+                     ("submit", [3], 5, {"top_logprobs": 3}),
+                     ("submit", [9, 2, 40], 4, {}), ("run",)]),
+    "mixed_staggered": (2, [("submit", [5, 11], 3, {"repetition_penalty": 1.5,
+                                                    "logprobs": True}),
+                            ("submit", [3], 8, {"logit_bias": {"3": 4.0}, "top_logprobs": 5}),
+                            ("until_done", 0),
+                            ("submit", [7, 7, 24], 4, {"frequency_penalty": 0.5,
+                                                       "top_k": 3, "top_p": 0.5}),
+                            ("run",)]),
+}
+
+
+@pytest.mark.parametrize("name", list(CONTROL_SCRIPTS))
+def test_controls_match_jax(weights, name):
+    """Greedy requests with penalties, logit_bias and (top) logprobs: the
+    JAX engine's tokens, logprobs within 1e-4 and top ids."""
+    batch, script = CONTROL_SCRIPTS[name]
+    je, te = engines(weights, batch)
+    same_controls(drive_reqs(te, TB, script), drive_reqs(je, JB, script))
+
+
+SPEC_CONTROL_SCRIPTS = {
+    # logprobs along accepted drafts: the verify chain's
+    "logprobs": (2, [("submit", [5, 11, 5, 11, 5], 7, {"logprobs": True}),
+                     ("submit", [3, 3, 3], 6, {"top_logprobs": 2}), ("run",)]),
+    # a penalised slot keeps the batch on the plain step while it lives
+    "penalised_neighbour": (2, [("submit", [5, 11, 5, 11], 4, {"repetition_penalty": 1.3}),
+                                ("submit", [7, 8, 7, 8, 7], 9, {"logprobs": True}),
+                                ("until_done", 0),
+                                ("submit", [4, 6, 4, 6], 6, {"logit_bias": {"6": 2.0}}),
+                                ("run",)]),
+}
+
+
+@pytest.mark.parametrize("name", list(SPEC_CONTROL_SCRIPTS))
+def test_speculative_controls_match_jax(weights, name):
+    batch, script = SPEC_CONTROL_SCRIPTS[name]
+    je, te = spec_engines(weights, batch, 3)
+    same_controls(drive_reqs(te, TB, script), drive_reqs(je, JB, script))
+    assert te.stats == je.stats and te.stats["spec_forwards"] > 0
+
+
+def jax_kept_sets(monkeypatch, jp, req, filters):
+    """JAX's kept set (tokens of nonzero filtered probability) at each of
+    ``req``'s steps: the JAX model's logits over prompt + tokens, filtered
+    by tpu_llm.ops.sampling.filtered_sample with its draw observed."""
+    import jax.numpy as jnp
+
+    from tpu_llm.ops import sampling as JS
+
+    adapter = JE.ModelAdapter.llama(JConfig(**CFG), bos_id=1)
+    ids = [1] + req.prompt + req.tokens[:-1]
+    state = adapter.init_state(1, CFG["seq_len"])
+    hidden, _ = adapter.apply(jp, tokens=jnp.asarray([ids], jnp.int32), state=state,
+                              offset=jnp.int32(0))
+    logits = adapter.lm_head(jp, hidden=hidden)[0, len(req.prompt):]
+    seen = []
+    monkeypatch.setattr(JS, "_cdf_sample", lambda key, probs: seen.append(probs) or jnp.int32(0))
+    for row in logits:
+        JS.filtered_sample(row, None, jnp.float32(req.temperature), *filters)
+    return [set(np.flatnonzero(np.asarray(p) > 0)) for p in seen]
+
+
+@pytest.mark.parametrize("filt", [dict(top_k=4), dict(top_p=0.6), dict(min_p=0.2),
+                                  dict(top_k=6, top_p=0.8, min_p=0.05)],
+                         ids=["top_k", "top_p", "min_p", "mix"])
+def test_sampled_filters_stay_in_jax_kept_set(weights, monkeypatch, filt):
+    """Sampled requests with filters (next to a greedy and a plain sampled
+    one): every token lies in JAX's kept set at its step, and the same
+    seeds give the same tokens again."""
+    import jax.numpy as jnp
+
+    jp, _ = weights
+    script = [("submit", [5, 11], 10, dict(filt, temperature=0.9, seed=5)),
+              ("submit", [3, 9], 8, {}),
+              ("submit", [4, 4], 8, dict(filt, temperature=1.3, seed=8)),
+              ("submit", [6], 6, {"temperature": 0.7, "seed": 2}), ("run",)]
+    runs = [drive_reqs(engines(weights, 3)[1], TB, script) for _ in range(2)]
+    assert [r.tokens for r in runs[0]] == [r.tokens for r in runs[1]]
+    knobs = (jnp.int32(filt.get("top_k", 0)), jnp.float32(filt.get("top_p", 1.0)),
+             jnp.float32(filt.get("min_p", 0.0)))
+    for r in (runs[0][0], runs[0][2]):
+        kept = jax_kept_sets(monkeypatch, jp, r, knobs)
+        assert len(kept) == len(r.tokens) == r.max_new
+        assert all(t in k for t, k in zip(r.tokens, kept))
+        assert any(len(k) > 1 for k in kept)
+
+
+def test_plain_batch_never_filters_or_counts(weights, monkeypatch):
+    """A batch of plain requests (greedy and sampled) never reaches the
+    filtered sampler, builds no penalty counts or bias rows and reads
+    nothing but the tokens: one array a step."""
+    _, te = engines(weights, 3)
+
+    def no(*a, **k):
+        raise AssertionError("the plain path took a control's route")
+
+    monkeypatch.setattr(TB, "filtered_sample", no)
+    monkeypatch.setattr(TB, "_apply_penalties", no)
+    monkeypatch.setattr(TB, "_bias_row", no)
+    monkeypatch.setattr(TB, "_top_rows", no)
+    monkeypatch.setattr(TB, "_token_logprob", no)
+    fetched = []
+    real = TB._start_fetch
+
+    def spy(*ts):
+        fetched.append(sum(t is not None for t in ts))
+        return real(*ts)
+
+    monkeypatch.setattr(TB, "_start_fetch", spy)
+    reqs = [te.submit(TB.Request(prompt=[5, 11], max_new=6)),
+            te.submit(TB.Request(prompt=[3], max_new=5, temperature=0.8, seed=3)),
+            te.submit(TB.Request(prompt=[9, 2, 4], max_new=4))]
+    te.run()
+    assert all(r.done and len(r.tokens) == r.max_new for r in reqs)
+    assert te._counts is None and te._bias is None
+    assert fetched and set(fetched) == {1}

@@ -1,9 +1,9 @@
 """The port's CLI (run on the CPU) prints byte-identical greedy output to
 tpu_llm.runtime.cli on the tiny test GGUFs (f32, Q4_0, and K-quant and
 legacy-quant files), with and without --fold-norms, and with --scan,
---spec, --spec --draft and --scan --spec, and over the int8 cache
-(--cache-dtype int8); --timings prints the five buckets, --profile DIR
-writes a trace."""
+--spec, --spec --draft and --scan --spec, over the int8 cache
+(--cache-dtype int8), and with the sampling filters and penalties;
+--timings prints the five buckets, --profile DIR writes a trace."""
 
 import pytest
 
@@ -43,10 +43,11 @@ def test_sampled_output_reproducible_per_seed(tmp_path, capfdbinary):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("flag", [["--top-k", "5"], ["--top-p", "0.9"], ["--min-p", "0.1"]],
-                         ids=["top-k", "top-p", "min-p"])
+@pytest.mark.parametrize("flag", [["--ak"], ["--lora", "x.gguf"], ["--tp", "2"], ["--dp", "2"]],
+                         ids=["ak", "lora", "tp", "dp"])
 def test_flags_outside_the_slice_are_refused(flag):
-    """The sampling filters stay refused (argparse exits 2)."""
+    """The packed format, LoRA and the parallel flags stay refused
+    (argparse exits 2)."""
     with pytest.raises(SystemExit) as e:
         tcli.build_parser().parse_args(["-m", "x.gguf", *flag])
     assert e.value.code == 2
@@ -174,3 +175,40 @@ def test_profile_writes_a_trace(tmp_path, capfdbinary):
                       "--profile", str(out_dir), "--device", "cpu"]) == 0
     lines = capfdbinary.readouterr().out.decode().splitlines()
     assert lines[-1] == f" Timings: torch.profiler trace written to {out_dir}"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--top-k", "3", "--top-p", "0.5", "--min-p", "0.2"],
+    ["--repeat-penalty", "1.3"],
+    ["--frequency-penalty", "0.7", "--presence-penalty", "0.4"],
+    ["--repeat-penalty", "1.2", "--frequency-penalty", "0.3", "--top-k", "4"],
+    ["--repeat-penalty", "1.3", "--spec", "3"],
+], ids=["filters", "repeat", "frequency_presence", "mixed", "penalty_turns_spec_off"])
+@pytest.mark.parametrize("loop", [[], ["--scan"]], ids=["step", "scan"])
+def test_controls_match_jax_at_greedy(tmp_path, capfdbinary, flags, loop):
+    """Greedy with the filters (identity at temperature 0) and with the
+    penalties (which take the step loop, --scan or not, and turn
+    speculation off): the JAX CLI's first line."""
+    path = str(tmp_path / "tiny.gguf")
+    build_tiny_gguf(path, quant=True)
+    got, want = _first_lines(capfdbinary, ["-m", path, "-p", "abc", "-n", "16",
+                                           "--dtype", "f32", *flags, *loop])
+    assert got == want and got.startswith(b"abc") and len(got) > 3
+
+
+@pytest.mark.parametrize("loop", [[], ["--scan"]], ids=["step", "scan"])
+def test_top_k_one_samples_the_greedy_stream(tmp_path, capfdbinary, loop):
+    """--top-k 1 at a temperature through the filtered sampler (in the
+    captured step too) is the greedy stream; another seed or filter is
+    reproducible a seed."""
+    path = str(tmp_path / "tiny.gguf")
+    build_tiny_gguf(path, quant=True)
+    base = ["-m", path, "-p", "abc", "-n", "16", "--dtype", "f32", *loop]
+    got, want = _first_lines(capfdbinary, base, ["-t", "0.9", "--seed", "5", "--top-k", "1"])
+    assert got == want
+    outs = []
+    for _ in range(2):
+        assert tcli.main(base + ["-t", "1.1", "--seed", "7", "--top-p", "0.9",
+                                 "--min-p", "0.05", "--device", "cpu"]) == 0
+        outs.append(capfdbinary.readouterr().out.split(b"\n")[0])
+    assert outs[0] == outs[1] and outs[0].startswith(b"abc")

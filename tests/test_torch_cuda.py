@@ -1015,3 +1015,26 @@ def test_qmatmul_replays_in_a_graph(gen):
         torch.cuda.synchronize()
         assert torch.equal(out, want)
     assert QM._tile_counters[x.device].count_nonzero().item() == 0
+
+
+@pytest.mark.parametrize("B,V", [(8, 32000), (3, 97)])
+def test_filtered_sample_on_the_card_matches_cpu(gen, B, V):
+    """The sampling filters have no hand kernel (the JAX package runs them
+    as XLA ops): on CUDA tensors ``filtered_sample`` gives the ids of the
+    same call on the CPU with the same uniforms, for every filter and
+    temperature 0 (the device path takes no shortcut)."""
+    from tpu_llm_torch.ops.sampling import filtered_sample
+
+    x = torch.randn((B, V), generator=gen, device="cuda") * 3
+    x = torch.round(x * 10) / 10                     # ties, at the k-th logit too
+    r = torch.rand((B, 1), generator=gen, device="cuda")
+    knobs = [torch.linspace(0.0, 1.5, B, device="cuda"),
+             torch.tensor([0, 1, 3, 40, 0, 7, 0, 200][:B], device="cuda"),
+             torch.tensor([1.0, 0.9, 0.5, 1.0, 0.3, 0.8, 0.95, 1.0][:B], device="cuda"),
+             torch.tensor([0.0, 0.0, 0.05, 0.2, 0.1, 0.0, 0.01, 0.5][:B], device="cuda")]
+    for trial in range(4):
+        got = filtered_sample(x, r, *knobs)
+        want = filtered_sample(x.cpu(), r.cpu(), *(k.cpu() for k in knobs))
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want), (trial, got.cpu(), want)
+        r = torch.rand((B, 1), generator=gen, device="cuda")

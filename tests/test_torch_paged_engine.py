@@ -174,3 +174,59 @@ def test_paged_speculative_matches_jax(weights, block_size, cache, drafter):
     kw.pop("speculative_k")
     _, plain = engines(weights, **kw)
     assert drive(plain, TB, script) == got
+
+
+@pytest.mark.parametrize("cache", [None, "int8"], ids=["f32", "int8"])
+@pytest.mark.parametrize("name", ["penalties", "logit_bias", "logprobs", "mixed_staggered"])
+def test_paged_controls_match_jax(weights, name, cache):
+    """The batch engines' controls through the paged prefill tail and
+    decode: the JAX paged engine's tokens, logprobs within 1e-4, top ids,
+    prefix-cache counts and blocks in use. For "penalties" the reference
+    is the JAX dense engine (the JAX paged engine stops on that script:
+    its step's arguments hold the state that the counts rebuild's
+    collect donates when it retires a slot; ROADMAP.md queue 3), whose
+    tokens the JAX paged engine's equal (tests/test_paged_engine.py
+    ``test_paged_penalties_match_dense_engine``)."""
+    from tests.test_torch_batching import CONTROL_SCRIPTS, drive_reqs, same_controls
+    from tpu_llm.runtime.engine import ModelAdapter as JAdapter
+
+    batch, script = CONTROL_SCRIPTS[name]
+    kw = dict(batch=batch, n_blocks=48, block_size=4)
+    if cache:
+        kw["cache_dtype"] = cache
+    je, te = engines(weights, **kw)
+    got = drive_reqs(te, TB, script)
+    if name == "penalties":
+        je = JB.BatchEngine(weights[0], JAdapter.llama(JConfig(**CFG), bos_id=1,
+                                                       **({"cache_dtype": cache} if cache else {})),
+                            batch=batch, max_seq=CFG["seq_len"])
+        same_controls(got, drive_reqs(je, JB, script))
+        return
+    same_controls(got, drive_reqs(je, JB, script))
+    assert stats(te) == stats(je)
+
+
+def test_paged_speculative_logprobs_match_jax(weights):
+    from tests.test_torch_batching import SPEC_CONTROL_SCRIPTS, drive_reqs, same_controls
+
+    batch, script = SPEC_CONTROL_SCRIPTS["penalised_neighbour"]
+    je, te = engines(weights, batch=batch, n_blocks=64, block_size=4, speculative_k=3)
+    same_controls(drive_reqs(te, TB, script), drive_reqs(je, JB, script))
+    assert te.stats == je.stats and te.stats["spec_forwards"] > 0
+
+
+def test_paged_sampled_filters_stay_in_jax_kept_set(weights, monkeypatch):
+    import jax.numpy as jnp
+
+    from tests.test_torch_batching import drive_reqs, jax_kept_sets
+
+    filt = dict(top_k=6, top_p=0.8, min_p=0.05)
+    script = [("submit", [5, 11, 8, 3, 9], 10, dict(filt, temperature=0.9, seed=5)),
+              ("submit", [3, 9], 8, {}), ("run",)]
+    runs = [drive_reqs(engines(weights, batch=2, n_blocks=32, block_size=4)[1], TB, script)
+            for _ in range(2)]
+    assert [r.tokens for r in runs[0]] == [r.tokens for r in runs[1]]
+    r = runs[0][0]
+    kept = jax_kept_sets(monkeypatch, weights[0], r, (jnp.int32(6), jnp.float32(0.8),
+                                                      jnp.float32(0.05)))
+    assert len(kept) == len(r.tokens) == 10 and all(t in k for t, k in zip(r.tokens, kept))

@@ -2,7 +2,8 @@
 tiny GGUF on the CPU against tpu_llm.runtime.serve_cli with the same
 flags: per-request completions and token counts identical, the summary
 with the same keys (dense, paged, int8 dense planes and pools, --spec,
---spec --paged, --spec --draft); flags outside the slice refused."""
+--spec --paged, --spec --draft, the sampling filters); flags outside the
+slice refused."""
 
 import json
 
@@ -64,8 +65,7 @@ def test_prompts_file_and_stop_at_eos(tiny, tmp_path, capsys):
     assert [r["prompt"] for r in rows] == ["abc", "ab"] and summary["requests"] == 2
 
 
-@pytest.mark.parametrize("flag", [["--lora", "x"], ["--tp", "2"], ["--dp", "2"],
-                                  ["--top-k", "5"], ["--top-p", "0.9"], ["--min-p", "0.1"]])
+@pytest.mark.parametrize("flag", [["--lora", "x"], ["--tp", "2"], ["--dp", "2"]])
 def test_flags_outside_the_slice_are_refused(flag):
     with pytest.raises(SystemExit) as e:
         tcli.build_parser().parse_args(["-m", "x.gguf", "-p", "a"] + flag)
@@ -97,3 +97,18 @@ def test_dense_int8_and_missing_card_exit_1(tiny, capsys):
         for extra in ([], ["--cache-dtype", "int8"]):
             assert tcli.main(["-m", tiny, "-p", "a", *extra]) == 1
             assert "--device cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", [[], ["--paged", "--block-size", "4"]], ids=["dense", "paged"])
+def test_filters_match_jax(tiny, mode, capsys, monkeypatch):
+    """--top-k 1 with a temperature gives the JAX front end's greedy
+    completions; --top-p / --min-p at temperature 0 too."""
+    monkeypatch.setenv("TPU_LLM_NO_COMPILE_CACHE", "1")
+    argv = ["-m", tiny, "-p", "abc", "-p", "ab", "-n", "6", "--batch", "2"] + mode
+    want, _ = _run(jcli.main, argv, capsys)
+    for flags in (["-t", "0.9", "--top-k", "1"], ["--top-p", "0.5", "--min-p", "0.2"]):
+        got, _ = _run(tcli.main, argv + flags + ["--device", "cpu"], capsys)
+        assert [r["completion"] for r in got] == [r["completion"] for r in want]
+    args = tcli.build_parser().parse_args(argv + ["--top-k", "5", "--top-p", "0.9",
+                                                  "--min-p", "0.1"])
+    assert (args.top_k, args.top_p, args.min_p) == (5, 0.9, 0.1)

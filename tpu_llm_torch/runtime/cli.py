@@ -4,10 +4,13 @@ The reference flags -m/--model, -p/--prompt, -s/--tokenizer,
 -t/--temperature, -n/--num_tokens (total incl. prompt echo), -v/--verbose,
 plus --dtype f32|bf16|native, --cache-dtype f32|bf16|int8, --seed,
 --max-seq, --rope, --fold-norms, --scan (the CUDA-graph decode loop), --spec
-K and --draft GGUF (speculative decoding), --timings (the five-bucket
-report), --profile DIR (a torch.profiler trace of the generation, as a
-Chrome trace in DIR) and --device (cuda unless told otherwise). Any other
-flag of the JAX package's CLI is refused by argparse. Output contract
+K and --draft GGUF (speculative decoding), the sampling controls --top-k,
+--top-p, --min-p, --repeat-penalty, --frequency-penalty and
+--presence-penalty, --timings (the five-bucket report), --profile DIR (a
+torch.profiler trace of the generation, as a Chrome trace in DIR) and
+--device (cuda unless told otherwise). Any other flag of the JAX
+package's CLI (--ak, --lora, --tp, --dp and the multi-host flags) is
+refused by argparse. Output contract
 (``tpu_llm/runtime/cli.py``): the streamed raw token bytes (with --scan,
 the decoded text at the end instead), then a blank line, the inference
 time, the decode tokens/second and the TTFT, then the timing report, the
@@ -40,6 +43,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dtype", default="f32", choices=["f32", "bf16", "int8"],
                    help="KV cache storage; int8 = per-(token, head) scaled planes "
                         "(ops/kv_cache.py)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="top-k sampling filter (0 = off)")
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling filter (1.0 = off)")
+    p.add_argument("--min-p", type=float, default=0.0,
+                   help="llama.cpp min_p filter (0 = off)")
+    p.add_argument("--repeat-penalty", type=float, default=1.0,
+                   help="HF/llama.cpp-style repetition penalty over the text so far "
+                        "(1.0 = off)")
+    p.add_argument("--frequency-penalty", type=float, default=0.0,
+                   help="OpenAI frequency penalty (per-count logit subtraction; 0 = off)")
+    p.add_argument("--presence-penalty", type=float, default=0.0,
+                   help="OpenAI presence penalty (seen-token logit subtraction; 0 = off)")
     p.add_argument("--seed", type=int, default=None,
                    help="sampling seed (default: time-based)")
     p.add_argument("--fold-norms", action="store_true",
@@ -148,7 +164,10 @@ def main(argv=None) -> int:
         res = engine.generate(prompt_ids, n_total=n, temperature=args.temperature,
                               seed=seed, stream=None if args.scan else stream,
                               use_scan=args.scan, speculative_k=args.spec,
-                              draft=draft_engine)
+                              draft=draft_engine, top_k=args.top_k, top_p=args.top_p,
+                              min_p=args.min_p, repetition_penalty=args.repeat_penalty,
+                              frequency_penalty=args.frequency_penalty,
+                              presence_penalty=args.presence_penalty)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))

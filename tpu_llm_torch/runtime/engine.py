@@ -33,7 +33,11 @@ inverse-CDF draw: in the step loop from a ``torch.Generator`` on the
 engine's device seeded by ``seed`` (a stream that differs from the JAX
 package's PRNG stream), in the graph loop from a counter-based uniform
 (``ops/sampling.select_token_counter``), deterministic for a seed.
-Penalties and top-k/top-p/min-p are later slices.
+``top_k`` / ``top_p`` / ``min_p`` filter the draw (``filtered_sample``)
+in both loops, with the knobs in device buffers of the captured step.
+Penalties (frequency, presence, repetition) need per-token counts that
+evolve with every token: they take the step loop (a ``use_scan`` request
+runs it) and turn speculation off, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tpu_llm_torch.ops.sampling import greedy, select_token, select_token_counter
+from tpu_llm_torch.ops.sampling import (counter_uniform, filtered_sample, greedy,
+                                        select_token, select_token_counter)
 
 
 @dataclasses.dataclass
@@ -144,11 +149,24 @@ class Engine:
         logits = self.adapter.lm_head(self.params, hidden[:, last_idx:last_idx + 1])
         return logits[:, 0, :], state
 
+    def _sample(self, logits: torch.Tensor, temperature: float, generator,
+                filters=None, pen=None) -> torch.Tensor:
+        """(B, V) logits -> (B,) int32: the plain sampler, or (with
+        ``filters`` (top_k, top_p, min_p) tensors or ``pen`` (counts,
+        knobs)) the batch engines' sampling step, which bumps the counts."""
+        if filters is None and pen is None:
+            return select_token(logits, temperature, generator)
+        from tpu_llm_torch.runtime.batching import _sample_step
+
+        B = logits.shape[0]
+        return _sample_step(logits, [temperature] * B, [generator] * B, filters,
+                            *(pen or (None, None)))
+
     def _decode(self, token: torch.Tensor, state, pos: int, temperature: float,
-                generator):
+                generator, filters=None, pen=None):
         hidden, state = self.adapter.apply(self.params, token[:, None], state, pos)
         logits = self.adapter.lm_head(self.params, hidden)[:, 0, :]
-        return select_token(logits, temperature, generator), state
+        return self._sample(logits, temperature, generator, filters, pen), state
 
     def _verify(self, tokens: torch.Tensor, state, pos: int):
         """Teacher-force ``tokens`` (B, k+1) at positions [pos, pos+k]: the
@@ -187,22 +205,32 @@ class Engine:
     def _int_buffer(self, n: int, dtype=torch.int64) -> torch.Tensor:
         return torch.zeros(n, dtype=dtype, device=self.device)
 
-    def _decode_graph(self, temperature: float) -> dict:
+    def _decode_graph(self, temperature: float, filtered: bool = False) -> dict:
         """Static buffers and the step over them: the token fed (B,), the
         next position, the step index into ``out`` (max_seq, B) and the
-        sampling seed; ``step`` decodes one token and advances them."""
-        key = ("decode", float(temperature))
+        sampling seed; ``filtered`` adds the temperature and the
+        top_k / top_p / min_p knobs. ``step`` decodes one token and
+        advances them."""
+        key = ("decode", float(temperature)) + (("filtered",) if filtered else ())
         if key in self._graphs:
             return self._graphs[key]
         params, state, B = self._graph_params(), self._static_state(), self.batch
         g = {"tok": self._int_buffer(B, torch.int32), "pos": self._int_buffer(1, torch.int32),
              "i": self._int_buffer(1), "seed": self._int_buffer(1),
-             "out": self._int_buffer((self.max_seq, B), torch.int32)}
+             "out": self._int_buffer((self.max_seq, B), torch.int32),
+             "temp": self._int_buffer(1, torch.float32), "top_k": self._int_buffer(1),
+             "top_p": self._int_buffer(1, torch.float32),
+             "min_p": self._int_buffer(1, torch.float32)}
 
         def step():
             hidden, _ = self.adapter.apply(params, g["tok"][:, None], state, g["pos"])
             logits = self.adapter.lm_head(params, hidden)[:, 0, :]
-            nxt = select_token_counter(logits, temperature, g["seed"], g["pos"])
+            if filtered:
+                # select_token_counter's uniform, drawn at any temperature
+                nxt = filtered_sample(logits, counter_uniform(g["seed"], g["pos"], B),
+                                      g["temp"], g["top_k"], g["top_p"], g["min_p"])
+            else:
+                nxt = select_token_counter(logits, temperature, g["seed"], g["pos"])
             g["out"].index_copy_(0, g["i"], nxt[None, :])
             g["tok"].copy_(nxt)
             g["pos"].add_(1)
@@ -214,15 +242,19 @@ class Engine:
         return g
 
     def _run_decode_graph(self, first: int, pos: int, steps: int, temperature: float,
-                          seed: int) -> List[List[int]]:
-        """``steps`` tokens after ``first`` at ``pos``: (steps, B) ids."""
+                          seed: int, filters=None) -> List[List[int]]:
+        """``steps`` tokens after ``first`` at ``pos``: (steps, B) ids;
+        ``filters`` (top_k, top_p, min_p) numbers, or None."""
         from tpu_llm_torch.runtime.graphs import CapturedStep
 
-        g = self._decode_graph(temperature)
+        g = self._decode_graph(temperature, filters is not None)
         g["tok"].fill_(first)
         g["pos"].fill_(pos)
         g["i"].zero_()
         g["seed"].fill_(seed)
+        g["temp"].fill_(temperature)
+        for name, v in zip(("top_k", "top_p", "min_p"), filters or (0, 1.0, 0.0)):
+            g[name].fill_(v)
         done = 0
         if g["captured"] is None:
             # the warm-up before the capture is the first real step
@@ -324,13 +356,19 @@ class Engine:
         use_scan: bool = False,
         speculative_k: int = 0,
         draft: Optional["Engine"] = None,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        frequency_penalty: float = 0.0,
+        presence_penalty: float = 0.0,
+        repetition_penalty: float = 1.0,
     ) -> GenerationResult:
         """Single-stream generation with the reference's -n semantics:
         ``n_total`` counts prompt echo + generated tokens; alternatively
-        pass ``n_new``. ``use_scan``, ``speculative_k`` and ``draft`` as in
-        the module docstring; every speculative mode emits exactly the
-        plain greedy stream. ``use_scan`` on a card that cannot capture the
-        step raises."""
+        pass ``n_new``. ``use_scan``, ``speculative_k``, ``draft``, the
+        filters and the penalties as in the module docstring; every
+        speculative mode emits exactly the plain greedy stream.
+        ``use_scan`` on a card that cannot capture the step raises."""
         prompt_ids = list(prompt_ids)
         if n_total is None:
             n_total = len(prompt_ids) + (n_new if n_new is not None else 128)
@@ -348,12 +386,33 @@ class Engine:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         positional = self.adapter.positional_state
+        filtered = top_k > 0 or top_p < 1.0 or min_p > 0.0
+        penalized = (frequency_penalty != 0.0 or presence_penalty != 0.0
+                     or repetition_penalty != 1.0)
         # the JAX package's routing: device speculation is prompt lookup,
         # greedy, batch 1, on the graph loop; host speculation any other
-        # greedy spec without use_scan
+        # greedy spec without use_scan; penalties on neither, and they take
+        # the step loop (the graph keeps no counts)
         use_device_spec = (speculative_k > 0 and temperature == 0 and use_scan
-                           and draft is None and self.batch == 1 and positional)
-        use_spec = speculative_k > 0 and temperature == 0 and not use_scan and positional
+                           and not penalized and draft is None and self.batch == 1
+                           and positional)
+        use_spec = (speculative_k > 0 and temperature == 0 and not use_scan
+                    and not penalized and positional)
+        use_scan = use_scan and not penalized
+        filters = pen = None
+        if filtered:
+            filters = (torch.tensor([top_k], device=self.device),
+                       torch.tensor([top_p], dtype=torch.float32, device=self.device),
+                       torch.tensor([min_p], dtype=torch.float32, device=self.device))
+        if penalized:
+            v = self.adapter.vocab_size
+            if v <= 0:
+                raise ValueError("penalties need adapter.vocab_size")
+            counts = np.zeros((self.batch, v), np.int32)
+            counts[:] = np.bincount(input_ids, minlength=v)
+            pen = (torch.from_numpy(counts).to(self.device),
+                   tuple(torch.full((self.batch,), x, dtype=torch.float32, device=self.device)
+                         for x in (frequency_penalty, presence_penalty, repetition_penalty)))
         graph_state = self._static_state() if use_scan else None
 
         t0 = time.perf_counter()
@@ -376,7 +435,7 @@ class Engine:
         n_gen = n_total - len(emitted)
         ttft_s = None
         if n_gen > 0:
-            token = select_token(logits, temperature, generator)
+            token = self._sample(logits, temperature, generator, filters, pen)
             first = int(token[0])
             ttft_s = time.perf_counter() - t0
             emit(first)
@@ -398,13 +457,15 @@ class Engine:
             self._host_spec(toks_dev, input_ids, emitted, emit, state, pos, steps,
                             speculative_k, draft, generator)
         elif steps and use_scan:
-            out = self._run_decode_graph(emitted[-1], pos, steps, temperature, seed)
+            out = self._run_decode_graph(emitted[-1], pos, steps, temperature, seed,
+                                         (top_k, top_p, min_p) if filtered else None)
             for row in out:
                 emit(int(row[0]))
         elif steps:
             pending = None
             for _ in range(steps):
-                token, state = self._decode(token, state, pos, temperature, generator)
+                token, state = self._decode(token, state, pos, temperature, generator,
+                                            filters, pen)
                 pos += 1
                 if pending is not None:
                     emit(int(pending[0]))

@@ -24,7 +24,10 @@ to pos + k (within the admission reservation); window rows past the
 mapped region write into the null block, and no used chain entry attends
 them. A draft model keeps its own dense cache. A T > 1 verify goes
 through the gather path (the paged decode kernels serve T = 1 only), the
-reference's cost cliff for --paged with --spec.
+reference's cost cliff for --paged with --spec. The sampling controls
+(filters, penalties, logit_bias, logprobs) are BatchEngine's too: the
+prefill tail and the decode step return logits, and BatchEngine samples
+them.
 
 Llama only. One-query steps on the card run the paged decode kernels (K5,
 or K6 for int8 pools); long prefill chunks the flash prefill kernel (K4).
@@ -42,7 +45,6 @@ import torch
 from tpu_llm_torch.ops.paged_kv import (BlockAllocator, PagedKV, PrefixCache,
                                         paged_gqa_attention, paged_update_tokens,
                                         scale_pool_width, scale_rows_per_block)
-from tpu_llm_torch.ops.sampling import select_token, select_tokens
 from tpu_llm_torch.runtime.batching import BatchEngine, Request, _Slot, to_device
 from tpu_llm_torch.runtime.engine import _next_bucket
 
@@ -86,6 +88,7 @@ class PagedEngine(BatchEngine):
         self.max_seq = self.max_blocks * block_size
         self.eos_id = eos_id
         self.bos_id = bos_id
+        self._vocab = cfg.vocab_size
         self.device = torch.device(device)
         self.quantized = quantized
         self._n_blocks = n_blocks
@@ -158,24 +161,21 @@ class PagedEngine(BatchEngine):
         writes only."""
         self._forward(toks, *self._slot_rows(idx), pos0)
 
-    def _prefill_tail(self, idx: int, toks, pos0: int, last_idx: int,
-                      temperature: float, generator) -> torch.Tensor:
+    def _prefill_tail(self, idx: int, toks, pos0: int, last_idx: int) -> torch.Tensor:
         """The prompt tail (1, Tpad) at positions [pos0, pos0 + Tpad)
         through the slot's table row; shared prefix blocks are already
-        mapped. Returns the first token, (1,) on the device."""
+        mapped. Returns the last prompt position's logits (1, V)."""
         from tpu_llm_torch.models import llama as M
 
         hidden = self._forward(toks, *self._slot_rows(idx), pos0)
-        logits = M.lm_head(self.params, self.cfg, hidden[:, last_idx:last_idx + 1])
-        return select_token(logits[:, 0, :], temperature, generator)
+        return M.lm_head(self.params, self.cfg, hidden[:, last_idx:last_idx + 1])[:, 0, :]
 
-    def _decode(self, offsets, temps, generators) -> torch.Tensor:
+    def _decode(self, offsets) -> torch.Tensor:
         from tpu_llm_torch.models import llama as M
 
         hidden = self._forward(self._token_dev[:, None], self.state["table"],
                                self.state["lengths"], offsets)
-        logits = M.lm_head(self.params, self.cfg, hidden)[:, 0, :]
-        return select_tokens(logits, temps, generators)
+        return M.lm_head(self.params, self.cfg, hidden)[:, 0, :]
 
     def _verify_logits(self, tokens, offsets) -> torch.Tensor:
         from tpu_llm_torch.models import llama as M
@@ -248,16 +248,15 @@ class PagedEngine(BatchEngine):
                 tail, off = tail[ck:], off + ck
             toks = np.zeros((1, min(_next_bucket(len(tail)), self.max_seq)), np.int64)
             toks[0, :len(tail)] = tail
-            first = self._prefill_tail(idx, to_device(toks, torch.long, self.device),
-                                       off, len(tail) - 1, req.temperature,
-                                       slot.generator)
+            logits = self._prefill_tail(idx, to_device(toks, torch.long, self.device),
+                                        off, len(tail) - 1)
             if self._draft is not None:      # the draft prefills the whole prompt
                 dtoks = np.zeros((1, min(_next_bucket(n_in), self.max_seq)), np.int64)
                 dtoks[0, :n_in] = input_ids
                 self._draft_prefill(idx, to_device(dtoks, torch.long, self.device))
             if self.prefix is not None:
                 self.prefix.insert(input_ids, bs, blocks, digests=digs)
-            self._seat(idx, slot, first, n_in)
+            self._seat(idx, slot, logits, input_ids)
 
     def _pre_dispatch(self, live) -> None:
         """Map a fresh block for every slot whose next write crosses into
@@ -284,9 +283,9 @@ class PagedEngine(BatchEngine):
                                 to_device(cols, torch.long, dev)] = \
                 to_device(vals, torch.int32, dev)
 
-    def _record(self, slot: _Slot, tok: int):
+    def _record(self, slot: _Slot, tok: int, lp=None, top=None):
         req = slot.req
-        super()._record(slot, tok)
+        super()._record(slot, tok, lp, top)
         if req is not None and req.done and slot.req is None:
             idx = next(i for i, s in enumerate(self.slots) if s is slot)
             self._release_slot(idx, req)

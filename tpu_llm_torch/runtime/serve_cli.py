@@ -11,9 +11,10 @@ slot. ``--paged`` takes the paged KV pool with automatic prefix caching;
 
 Flags: -m -p -f -n -t -s, --dtype f32|bf16|native, --cache-dtype
 f32|bf16|int8, --batch, --max-seq, --paged, --block-size, --n-blocks,
---spec, --draft, --stop-at-eos, --seed, -v and --device (cuda unless told
-otherwise). Any other flag of the JAX package's front end (--lora, --tp,
---dp, --top-k, --top-p, --min-p) is refused by argparse.
+--spec, --draft, --stop-at-eos, --top-k, --top-p, --min-p (each request's
+sampling filters), --seed, -v and --device (cuda unless told otherwise).
+Any other flag of the JAX package's front end (--lora, --tp, --dp) is
+refused by argparse.
 
 Output contract: one JSON object a request on stdout (prompt,
 completion, n_tokens, ttft_s), then the summary object on stderr.
@@ -56,6 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spec", type=int, default=0, metavar="K",
                    help="speculative drafts per step (greedy slots)")
     p.add_argument("--stop-at-eos", action="store_true")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="per-request top-k filter (0 = off)")
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="per-request nucleus filter (1.0 = off)")
+    p.add_argument("--min-p", type=float, default=0.0,
+                   help="llama.cpp min_p: drop tokens with prob < min_p * max_prob "
+                        "(0 = off)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -169,6 +177,7 @@ def main(argv=None) -> int:
         reqs.append(engine.submit(Request(
             prompt=ids, max_new=args.num_tokens, temperature=args.temperature,
             seed=args.seed + i, stop_at_eos=args.stop_at_eos,
+            top_k=args.top_k, top_p=args.top_p, min_p=args.min_p,
             stream=_mark_first(i))))
 
     steps = engine.run()
