@@ -56,7 +56,12 @@ Phases, one JSON line each:
    (`verify_window_b8_case`); K2 at D 128 with 32 kv heads and one q head
    a kv head, bf16 over a bf16 1024-row cache at position 1000
    (`llama2_7b_case`); K5 over bf16 pools of 64-row blocks
-   (`bs64_case`).
+   (`bs64_case`). The other llama-family shapes (check_family_shapes): K1
+   through a Mixtral-8x7B expert slice picked by a device index (w1e and
+   w2e, `mixtral_w*e_slice_case`, the slice's copy timed beside it) and at
+   Qwen2-7B's wqkv with f32 and bf16 rows (`qwen2_wqkv*_case`); K2, K3,
+   K4 and K5 at phi-2's head width 80 (`phi2_d80_case`, f32 q); K2 at
+   Qwen2-7B's 28/4 heads (`qwen2_g7_case`).
 3. cli — the port's `llm` CLI on tiny GGUFs written here with the port's
    own writer (f32 and Q4_0 with --dtype f32 and native; Q4_K and Q6_K
    native; Q4_K native --fold-norms; Q4_0 native with
@@ -147,13 +152,29 @@ Phases, one JSON line each:
    Engine.generate (16 + 128, bf16 activations), one decode step's
    launches, and the first-step logits (f32 activations) held against the
    plain path.
+9b. families full width — phi-2 2.7B (full depth), Mixtral-8x7B (all 32
+   layers, 8 experts top-2), Qwen2-7B (QKV biases, YaRN factor 4 over
+   32768) and Gemma-2B (head_dim 256, GeGLU, tied 256000-wide classifier),
+   random q4_0 weights in the loaders' layouts drawn on the card: a
+   16-token prompt and 64 greedy tokens through Engine.generate, the step
+   loop and the captured graph (--scan), every token held against a
+   teacher-forced plain-path forward (its argmax, or within 2e-2 *
+   max|logit| of it: a near-tie); the first-token logits with f32
+   activations against the plain path at 1e-3 * max|logit|; TTFT of a
+   512-token prompt; peak memory; each run's launches (gemma: no K2 / K4,
+   its head width takes the plain route as in the JAX package; with the
+   megakernel switch on, no K7 for gemma, phi-2 or Mixtral). Mixtral also
+   decodes at batch 1, 2 and 8, one strategy of the MoE FFN each (gather,
+   union, dense masked): tokens/s, K1 launches a step as the strategy
+   predicts, logits against the plain path.
 10. bench_cli — the port's `llm-bench` in-process on the card, each row
    on a line of its own: bf16 / q8_0 / q4_0 decode and TTFT (32 steps, 3
    TTFT samples); q4_0 with a 512-token prompt over 2048 rows (K4 takes
    the TTFT prefill); q6_k and q4_k; q4_0 over the int8 cache; Llama-2 7B
    q4_0 and bf16 (16 steps); --paged at batch 8 over 64-row blocks beside
    the dense cache; --spec (the BatchEngine host loop, batch 1 and 8,
-   plain and k = 4, with tokens per verify forward). Each invocation is a
+   plain and k = 4, with tokens per verify forward); phi2, phi2_q4_0 and
+   moe_q4_0 (32 steps). Each invocation is a
    main-path run with the kernels it must launch; then one step of the
    7b_q4_0 program (K1 at the 7B projections, K2 at D 128) held against
    the plain path.
@@ -168,6 +189,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -526,6 +548,7 @@ def check_kernels(torch, timer):
            4.0 * B * H * D * T * (T + 1) / 2, "f32")
     check_serving_shapes(torch, timer, g, compare, record)
     check_paged_kernels(torch, timer, g, compare, record, cases)
+    check_family_shapes(torch, timer, g, compare, record)
     return cases
 
 
@@ -765,6 +788,147 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
                timer.ms(lambda: F.scaled_dot_product_attention(
                    qs, k4, v4, attn_mask=mask, enable_gqa=True)),
                moved, 4.0 * H * D * rows_read, "f32")
+
+
+def check_family_shapes(torch, timer, g, compare, record):
+    """The shapes the other llama-family models give the kernels. K1: one
+    row through an expert slice picked by a device index out of stacked
+    Mixtral-8x7B planes (w1e 4096x14336, w2e 14336x4096, 8 experts, the
+    copy _expert_slice makes timed beside it), and Qwen2-7B's wqkv
+    3584x4608 with f32 rows (its f32 biases promote the activations to f32,
+    as in the JAX package) and bf16 rows. Head width 80 (phi-2: 32 heads, one
+    q head a kv head), f32 q as phi-2's biases leave it: K2 and K3 over the
+    `llm` CLI's f32 (1, 2048, 2560) cache at position 1000, K4 with a
+    512-token prompt over it, K5 over bf16 pools of 16-row blocks at batch
+    8 (positions PAGED_POS). K2 at Qwen2-7B's 28/4 heads (G 7, D 128), f32
+    q over an f32 cache. Library: torch._weight_int4pack_mm (bf16 rows)
+    and F.scaled_dot_product_attention in q's dtype."""
+    from tpu_llm_torch.models.llama import _expert_slice
+    from tpu_llm_torch.ops import flash_attention as FA
+    from tpu_llm_torch.quant.qmatmul import qmatmul, qmatmul_plain
+    from tpu_llm_torch.quant.qtensor import qmap
+
+    F = torch.nn.functional
+    dev = "cuda"
+    e = torch.tensor(5, device=dev)
+    for wname, (K, N) in (("mixtral_w1e_slice", (4096, 14336)),
+                          ("mixtral_w2e_slice", (14336, 4096)), ("qwen2_wqkv", (3584, 4608))):
+        for xdt in ((torch.bfloat16,) if wname.startswith("mixtral")
+                    else (torch.float32, torch.bfloat16)):
+            info = dict(weight=wname, kind="q4_0", planes="f32", rows=1, K=K, N=N,
+                        x=str(xdt).replace("torch.", ""), out=str(xdt).replace("torch.", ""),
+                        row_scale=False)
+            if wname.startswith("mixtral"):
+                stack = qmap(lambda *ps: torch.stack(ps), *[
+                    random_qtensor(torch, g, "q4_0", K, N) for _ in range(8)])
+                w = _expert_slice(stack, e)
+                info.update(experts=8, slice_copy_ms=timer.ms(lambda: _expert_slice(stack, e)),
+                            slice_copy_bytes=w.nbytes)
+                del stack
+            else:
+                w = random_qtensor(torch, g, "q4_0", K, N)
+            x = torch.randn((1, K), generator=g, device=dev).to(xdt)
+            got = qmatmul(x, w)
+            want = qmatmul_plain(x, w)
+            err, tol = compare("qmatmul", got, want, xdt == torch.bfloat16, **info)
+            lib_ms = int4pack_ms(torch, timer, x.bfloat16(), w, want, info)
+            record("qmatmul", info, err, tol, timer.ms(lambda: qmatmul(x, w)),
+                   timer.ms(lambda: qmatmul_plain(x, w)), lib_ms,
+                   w.nbytes + nbytes(x) + N * got.element_size(), 2.0 * K * N, "bf16")
+            del w
+
+    # head width 80: phi-2's 32/32 heads over the CLI's f32 cache
+    B, H, Hkv, D, S, pos = 1, 32, 32, 80, 2048, 1000
+    kc, vc = (torch.randn((B, S, Hkv * D), generator=g, device=dev) for _ in range(2))
+    q = torch.randn((B, 1, H, D), generator=g, device=dev)
+    k_cur, v_cur = (torch.randn((B, 1, Hkv * D), generator=g, device=dev) for _ in range(2))
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    k4, v4 = (c.view(B, S, Hkv, D)[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
+    sdpa = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k4, v4)  # noqa: E731
+    info = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, pos=pos, q="f32", cache="f32",
+                n_split=FA.decode_splits(B, Hkv, S)[1])
+    got = FA.flash_decode_attention(q, kc, vc, p)
+    err, tol = compare("flash_decode_attention", got,
+                       FA.flash_decode_attention_plain(q, kc, vc, p), False, **info)
+    record("flash_decode_attention", info, err, tol,
+           timer.ms(lambda: FA.flash_decode_attention(q, kc, vc, p)),
+           timer.ms(lambda: FA.flash_decode_attention_plain(q, kc, vc, p)), timer.ms(sdpa),
+           nbytes(q) * 2 + 2 * B * (pos + 1) * Hkv * D * 4, 4.0 * B * H * (pos + 1) * D, "f32")
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got, _, _ = FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)
+    want, _, _ = FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)
+    err, tol = compare("flash_decode_fused", got, want, False, **info)
+    if not (torch.equal(k1[:, pos], k_cur[:, 0]) and torch.equal(v1[:, pos], v_cur[:, 0])):
+        fail(f"flash_decode_fused {info}: row pos is not this step's k/v")
+    record("flash_decode_fused", info, err, tol,
+           timer.ms(lambda: FA.flash_decode_fused(q, k1, v1, k_cur, v_cur, p)),
+           timer.ms(lambda: FA.flash_decode_fused_plain(q, k2, v2, k_cur, v_cur, p)),
+           timer.ms(sdpa), nbytes(q) * 2 + 2 * B * pos * Hkv * D * 4 + nbytes(k_cur, v_cur)
+           + 2 * Hkv * D * 4, 4.0 * B * H * (pos + 1) * D, "f32")
+    del k1, v1, k2, v2
+    T = 512
+    qp = torch.randn((B, T, H, D), generator=g, device=dev)
+    kp4, vp4 = (c.view(B, S, Hkv, D) for c in (kc, vc))
+    info = dict(B=B, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=0, q="f32", cache="f32")
+    got = FA.flash_gqa_attention(qp, kp4, vp4, 0)
+    err, tol = compare("flash_gqa_attention", got,
+                       FA.flash_gqa_attention_plain(qp, kp4, vp4, 0), False, **info)
+    qt = qp.transpose(1, 2)
+    kt, vt = kp4[:, :T].transpose(1, 2), vp4[:, :T].transpose(1, 2)
+    record("flash_gqa_attention", info, err, tol,
+           timer.ms(lambda: FA.flash_gqa_attention(qp, kp4, vp4, 0)),
+           timer.ms(lambda: FA.flash_gqa_attention_plain(qp, kp4, vp4, 0)),
+           timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+           nbytes(qp) * 2 + 2 * B * T * Hkv * D * 4, 4.0 * B * H * D * T * (T + 1) / 2, "f32")
+    del kc, vc, kp4, vp4, k4, v4, kt, vt
+
+    # K5 at head width 80: f32 q over bf16 pools (llm-serve's cache dtype)
+    BS, MB = 16, 1024 // 16
+    Bp = len(PAGED_POS)
+    Np = 1 + Bp * MB
+    pos8 = torch.tensor(PAGED_POS, dtype=torch.int32, device=dev)
+    table = (torch.randperm(Np - 1, generator=torch.Generator().manual_seed(80)) + 1)
+    table = table.reshape(Bp, MB).to(device=dev, dtype=torch.int32)
+    kpool, vpool = (torch.randn((Np, BS, Hkv * D), generator=g, device=dev).bfloat16()
+                    for _ in range(2))
+    q8 = torch.randn((Bp, 1, H, D), generator=g, device=dev)
+    args = (q8, kpool, vpool, table, pos8)
+    info = dict(B=Bp, H=H, Hkv=Hkv, D=D, BS=BS, MB=MB, pool="bf16", q="f32",
+                positions=PAGED_POS, n_split=FA.decode_splits(Bp, Hkv, MB * BS)[1])
+    got = FA.paged_flash_decode_attention(*args)
+    err, tol = compare("paged_flash_decode_attention", got,
+                       FA.paged_flash_decode_attention_plain(*args), True, **info)
+    rows_read = sum(x + 1 for x in PAGED_POS)
+    gk, gv = (pl[table.long()].reshape(Bp, MB * BS, Hkv, D).transpose(1, 2).float()
+              for pl in (kpool, vpool))
+    mask = (torch.arange(MB * BS, device=dev)[None, :]
+            <= pos8[:, None].long())[:, None, None, :]
+    qs = q8.transpose(1, 2)
+    record("paged_flash_decode_attention",
+           dict(info, library="sdpa over pre-gathered rows (gather not timed)"), err, tol,
+           timer.ms(lambda: FA.paged_flash_decode_attention(*args)),
+           timer.ms(lambda: FA.paged_flash_decode_attention_plain(*args)),
+           timer.ms(lambda: F.scaled_dot_product_attention(qs, gk, gv, attn_mask=mask)),
+           nbytes(q8) * 2 + 2 * rows_read * Hkv * D * 2
+           + sum(4 * (x // BS + 1) for x in PAGED_POS), 4.0 * H * D * rows_read, "f32")
+    del kpool, vpool, gk, gv
+
+    # K2 at Qwen2-7B's 28/4 heads (G 7), f32 q over the CLI's f32 cache
+    H, Hkv, D = 28, 4, 128
+    kc, vc = (torch.randn((B, S, Hkv * D), generator=g, device=dev) for _ in range(2))
+    q = torch.randn((B, 1, H, D), generator=g, device=dev)
+    info = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, pos=pos, q="f32", cache="f32",
+                n_split=FA.decode_splits(B, Hkv, S)[1])
+    got = FA.flash_decode_attention(q, kc, vc, p)
+    err, tol = compare("flash_decode_attention", got,
+                       FA.flash_decode_attention_plain(q, kc, vc, p), False, **info)
+    k4, v4 = (c.view(B, S, Hkv, D)[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
+    record("flash_decode_attention", info, err, tol,
+           timer.ms(lambda: FA.flash_decode_attention(q, kc, vc, p)),
+           timer.ms(lambda: FA.flash_decode_attention_plain(q, kc, vc, p)),
+           timer.ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k4, v4,
+                                                           enable_gqa=True)),
+           nbytes(q) * 2 + 2 * B * (pos + 1) * Hkv * D * 4, 4.0 * B * H * (pos + 1) * D, "f32")
 
 
 def launches_per_call(torch, fn, calls: int = 4, tries: int = 3):
@@ -2340,6 +2504,291 @@ def int8_cache_prefill(torch, params, cfg, prompt512, ids, max_seq, runs, total)
          logits_tol=lv["tol"], logits_top2_gap=lv["top2_gap"])
 
 
+# -- phase 9b: the other llama-family architectures at full width ------------------
+
+def family_configs():
+    """The four family configurations at their published widths: phi-2
+    2.7B (full depth), Mixtral-8x7B, Qwen2-7B (YaRN factor 4 over 32768)
+    and Gemma-2B. Mixtral keeps all 32 layers (its q4_0 planes ~28 GB)."""
+    from tpu_llm_torch.config import LlamaConfig, phi2_2_7b
+
+    return {
+        "phi2_2.7b": phi2_2_7b(),
+        "mixtral_8x7b": LlamaConfig(dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
+                                    n_kv_heads=8, vocab_size=32000, seq_len=32768,
+                                    rope_theta=1e6, n_experts=8, n_experts_used=2),
+        "qwen2_7b": LlamaConfig(dim=3584, hidden_dim=18944, n_layers=28, n_heads=28,
+                                n_kv_heads=4, vocab_size=152064, seq_len=131072,
+                                rope_theta=1e6, norm_eps=1e-6, rope_variant="neox",
+                                use_bias=True, rope_scaling_type="yarn",
+                                rope_scaling_factor=4.0, rope_orig_ctx=32768),
+        "gemma_2b": LlamaConfig(dim=2048, hidden_dim=16384, n_layers=18, n_heads=8,
+                                n_kv_heads=1, vocab_size=256000, seq_len=8192,
+                                norm_eps=1e-6, rope_variant="neox", act="gelu",
+                                head_dim_=256, emb_scale=2048 ** 0.5,
+                                tie_embeddings=True),
+    }
+
+
+def synth_family(torch, cfg, seed: int, kind: str = "q4_0"):
+    """Random weights of ``cfg``'s family drawn on the card, in the layouts
+    the port's loaders make with --dtype native: packed ``kind`` projections
+    (fused wqkv; w13, or phi-2's w3 / w2, or the stacked expert planes w1e /
+    w3e / w2e beside an f32 router), f32 norms (LayerNorm with bias for
+    phi-2) and f32 biases (phi-2's everywhere, Qwen2's on q / k / v), a
+    bf16 embedding, and a packed classifier unless tied. Phi-2's q / k / v
+    stay dense f32, as its loader leaves them."""
+    from tpu_llm_torch.quant.qtensor import qmap
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    E, Fh, V = cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    QKV = cfg.q_dim + 2 * cfg.kv_dim
+
+    def qt(K, N):
+        return random_qtensor(torch, g, kind, K, N)
+
+    def vec(n, scale=0.02):
+        return torch.randn(n, generator=g, device="cuda") * scale
+
+    ones = lambda: torch.ones(E, device="cuda")  # noqa: E731
+    layers = []
+    for _ in range(cfg.n_layers):
+        lp = {"attn_norm": ones()}
+        if cfg.use_layernorm:
+            lp["attn_norm_b"] = vec(E)
+        if not cfg.parallel_block:
+            lp["ffn_norm"] = ones()
+        if cfg.parallel_block:      # phi-2: dense f32 q / k / v, biases everywhere
+            lp.update(wqkv=torch.randn((E, QKV), generator=g, device="cuda") * 0.02,
+                      bqkv=vec(QKV), wo=qt(cfg.q_dim, E), bo=vec(E), w3=qt(E, Fh),
+                      b3=vec(Fh), w2=qt(Fh, E), b2=vec(E))
+        else:
+            lp.update(wqkv=qt(E, QKV), wo=qt(cfg.q_dim, E))
+            if cfg.use_bias:
+                lp["bqkv"] = vec(QKV)
+            if cfg.n_experts:
+                stack = lambda K, N: qmap(lambda *ps: torch.stack(ps),  # noqa: E731
+                                          *[qt(K, N) for _ in range(cfg.n_experts)])
+                lp.update(router=vec((E, cfg.n_experts), 0.05), w1e=stack(E, Fh),
+                          w3e=stack(E, Fh), w2e=stack(Fh, E))
+            else:
+                lp.update(w13=qt(E, 2 * Fh), w2=qt(Fh, E))
+        layers.append(lp)
+    params = {"tok_emb": (torch.randn((V, E), generator=g, device="cuda") * 0.02).bfloat16(),
+              "final_norm": ones(), "layers": layers,
+              "wcls": None if cfg.tie_embeddings else qt(E, V)}
+    if cfg.use_layernorm:
+        params.update(final_norm_b=vec(E), bcls=vec(V))
+    return params
+
+
+def greedy_vs_plain(torch, label, params, cfg, ids, tokens, tie_rel=2e-2):
+    """The greedy tokens of the kernel path held against the plain path on
+    the card: one teacher-forced plain forward over ``ids`` + ``tokens``;
+    each token must be the plain argmax, or lie within ``tie_rel`` *
+    max|logit| of the plain max (a near-tie: the bf16 tolerance of
+    logits_vs_plain). Returns the counts and the smallest top-1 margin of
+    the exact steps."""
+    from tpu_llm_torch.models import llama as M
+
+    seq = torch.tensor([ids + tokens[:-1]], device="cuda")
+    with torch.inference_mode(), plain_path():
+        c = M.init_cache(cfg, 1, seq.shape[1], torch.float32, "cuda")
+        x, _ = M.forward(params, cfg, seq, c, 0)
+        logits = M.lm_head(params, cfg, x[:, len(ids) - 1:])[0]
+    want = torch.tensor(tokens, device="cuda")
+    top = logits.max(dim=-1).values
+    tol = tie_rel * logits.abs().max(dim=-1).values
+    got = logits.gather(1, want[:, None])[:, 0]
+    exact = logits.argmax(dim=-1) == want
+    ok = bool((exact | (got >= top - tol)).all())
+    row = dict(run=label, steps=len(tokens), exact=int(exact.sum()),
+               near_tie=int((~exact).sum()), all_within_rule=ok)
+    emit("greedy_vs_plain", **row)
+    if not ok:
+        fail(f"{label}: greedy tokens off the plain path beyond a near-tie: {row}")
+    return row
+
+
+def rows_vs_plain(torch, label, kern_fn, rel_tol=2e-2):
+    """(B, V) logits of ``kern_fn()`` on the kernel path and under
+    plain_path(): max error <= rel_tol * max|logit|, and each row's top-1
+    the plain top-1 or within that tolerance of the plain max (the
+    near-tie rule of greedy_vs_plain)."""
+    with torch.inference_mode():
+        kern = kern_fn()
+        with plain_path():
+            plain = kern_fn()
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        fail(f"{label}: logits are not finite")
+    err = (kern - plain).abs().max().item()
+    tol = rel_tol * plain.abs().max().item()
+    top_k = kern.argmax(dim=-1)
+    exact = top_k == plain.argmax(dim=-1)
+    near = plain.gather(1, top_k[:, None])[:, 0] >= plain.max(dim=-1).values - tol
+    row = dict(run=label, rows=kern.shape[0], top1_exact=int(exact.sum()),
+               top1_near_tie=int((~exact & near).sum()), max_abs_err=err, tol=tol,
+               max_abs_logit=plain.abs().max().item())
+    emit("logits_vs_plain", **row)
+    if not (bool((exact | near).all()) and err <= tol):
+        fail(f"{label}: logits differ from the plain path: {row}")
+    return row
+
+
+MOE_BATCHES = (1, 2, 8)     # gather, union (2 x 2 < 8), dense masked (8 x 2 >= 8)
+
+
+def moe_batches(torch, params, cfg, runs, total):
+    """Mixtral decode at batch 1, 2 and 8 (one strategy of _moe_ffn each):
+    tokens/s over 32 steps of decode_step over a bf16 cache from position
+    16, K1 launches a step (gather 2, union 4, dense 8 experts: 3 a
+    selected expert, plus wqkv and wo, a layer; plus the classifier), and
+    each batch's decode logits held against the plain path."""
+    from tpu_llm_torch.models import llama as M
+
+    rows = []
+    for B in MOE_BATCHES:
+        cache = M.init_cache(cfg, B, 64, torch.bfloat16, "cuda")
+        ids = torch.randint(3, cfg.vocab_size, (B, 16), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(B))
+        with torch.inference_mode():
+            M.forward(params, cfg, ids, cache, 0)
+            tok = ids[:, -1]
+
+            def steps(n, start):
+                nonlocal tok
+                for pos in range(start, start + n):
+                    logits, _ = M.decode_step(params, cfg, tok, cache, pos)
+                    tok = torch.argmax(logits, dim=-1)
+                torch.cuda.synchronize()
+
+            _, per_step = drive_run(torch, f"mixtral_decode_b{B}_one_step",
+                                    lambda: steps(1, 16), ("qmatmul",), runs, total)
+            t = time.perf_counter()
+            steps(32, 17)
+            tok_s = 32 * B / (time.perf_counter() - t)
+
+        def logits(B=B, ids=ids):
+            c = M.init_cache(cfg, B, 64, torch.bfloat16, "cuda")
+            _, c = M.forward(params, cfg, ids, c, 0)
+            return M.decode_step(params, cfg, ids[:, 0], c, 16)[0]
+
+        experts = {1: 2, 2: 4, 8: 8}[B] * 3
+        want_k1 = cfg.n_layers * (experts + 2) + 1
+        if per_step["qmatmul"] != want_k1:
+            fail(f"mixtral batch {B}: {per_step['qmatmul']} K1 launches a step, not "
+                 f"{want_k1} (the strategy for {B} rows)")
+        lv = rows_vs_plain(torch, f"mixtral_decode_b{B}", logits)
+        rows.append(dict(batch=B, strategy={1: "gather", 2: "union", 8: "dense"}[B],
+                         decode_tok_s=tok_s, k1_per_step=per_step["qmatmul"],
+                         logits_err=lv["max_abs_err"], logits_tol=lv["tol"]))
+        del cache
+    return rows
+
+
+def families_full_width(torch):
+    """Phi-2 2.7B, Mixtral-8x7B, Qwen2-7B (YaRN) and Gemma-2B at full width
+    (family_configs) with random q4_0 weights drawn on the card
+    (synth_family), entered at Engine.generate over the `llm` CLI's f32
+    cache of 2048 rows: a 16-token prompt and 64 greedy tokens in the step
+    loop and in the captured graph (--scan), each token held against the
+    plain path (greedy_vs_plain); the first-token logits with f32
+    activations against the plain path at 1e-3 * max|logit|; TTFT of a
+    512-token prompt; peak memory; the launches of each run. Gemma's head
+    width 256 attends on the plain path (no K2 / K4 launch, the JAX
+    package's route), and its GeGLU never takes K7 with the megakernel
+    switch on. Mixtral also decodes at batch 1, 2 and 8 (moe_batches)."""
+    import numpy as np
+
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+
+    runs, total, rows = {}, {n: 0 for n in counters()}, []
+    rng = np.random.default_rng(17)
+    max_seq = 2048
+    for i, (name, cfg) in enumerate(family_configs().items()):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = synth_family(torch, cfg, seed=40 + i)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        packed = sum(w.nbytes for lp in params["layers"] for w in lp.values()
+                     if hasattr(w, "kind")) + (params["wcls"].nbytes if params["wcls"]
+                                                is not None else 0)
+        kernel_attn = M.kernel_head_dim(cfg.head_dim)
+        must = ("qmatmul", "flash_decode_attention") if kernel_attn else ("qmatmul",)
+        engine = Engine(params, ModelAdapter.llama(cfg, torch.float32, bos_id=1, device="cuda"),
+                        max_seq=max_seq, device="cuda")
+        prompt16 = [int(t) for t in rng.integers(3, cfg.vocab_size, 15)]
+        prompt512 = [int(t) for t in rng.integers(3, cfg.vocab_size, 511)]
+        engine.generate(prompt16, n_new=4)                       # warm-up
+        res, counts = drive_run(torch, f"{name}_generate_16_64",
+                                lambda: engine.generate(prompt16, n_new=64), must, runs, total)
+        gen = res.tokens[len(prompt16):]
+        step_check = greedy_vs_plain(torch, f"{name}_step_loop", params, cfg, [1] + prompt16,
+                                     gen)
+        engine.generate(prompt16, n_new=4, use_scan=True)        # capture
+        scan, scan_counts = drive_run(torch, f"{name}_scan_16_64",
+                                      lambda: engine.generate(prompt16, n_new=64,
+                                                              use_scan=True), must,
+                                      runs, total)
+        scan_gen = scan.tokens[len(prompt16):]
+        scan_check = greedy_vs_plain(torch, f"{name}_scan", params, cfg, [1] + prompt16,
+                                     scan_gen)
+        engine.generate(prompt512, n_new=1)                      # warm-up
+        long_must = must + (("flash_gqa_attention",) if kernel_attn
+                            and 512 * max_seq * cfg.n_heads * 4 > M.FLASH_PREFILL_SCORES_BYTES
+                            else ())
+        res512, counts512 = drive_run(torch, f"{name}_generate_512_2",
+                                      lambda: engine.generate(prompt512, n_new=2), long_must,
+                                      runs, total)
+        if not kernel_attn and (counts["flash_decode_attention"] or
+                                counts512["flash_gqa_attention"]):
+            fail(f"{name}: head_dim {cfg.head_dim} launched an attention kernel")
+        mk = None
+        if cfg.act != "silu" or cfg.n_experts or not cfg.gated_mlp:
+            # the megakernel switch on: a non-SiLU-gated model never takes K7
+            with switch("TPU_LLM_FFN_MEGAKERNEL"), torch.inference_mode():
+                cache = M.init_cache(cfg, 1, 64, torch.bfloat16, "cuda")
+                _, mk = drive_run(torch, f"{name}_megakernel_switch_one_step",
+                                  lambda: M.decode_step(params, cfg,
+                                                        torch.tensor([1], device="cuda"),
+                                                        cache, 0), ("qmatmul",), runs, total)
+            if mk["ffn_fused"]:
+                fail(f"{name}: K7 launched for a {cfg.act} model")
+        ids = torch.tensor([[1] + prompt16], device="cuda")
+        f32_params = dict(params, tok_emb=params["tok_emb"].float())
+        lv = logits_vs_plain(torch, f"{name}_first_token_f32",
+                             first_logits_fn(torch, f32_params, cfg, ids, 64), rel_tol=1e-3)
+        del f32_params
+        batches = moe_batches(torch, params, cfg, runs, total) if cfg.n_experts else None
+        row = dict(model=name, layers=cfg.n_layers, dim=cfg.dim, hidden=cfg.hidden_dim,
+                   heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+                   vocab=cfg.vocab_size, experts=cfg.n_experts,
+                   rope_scaling=cfg.rope_scaling, kind="q4_0", packed_bytes=packed,
+                   build_s=build_s, decode_tok_s=res.tokens_per_s,
+                   scan_decode_tok_s=scan.tokens_per_s, ttft_ms_16=res.ttft_s * 1e3,
+                   ttft_ms_512=res512.ttft_s * 1e3,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   launches_generate=counts, launches_scan=scan_counts,
+                   launches_512=counts512, megakernel_switch_launches=mk,
+                   attention_route="kernels" if kernel_attn else
+                   "plain (head_dim outside the kernels' 16..128; the JAX package's route)",
+                   step_loop_vs_plain=step_check, scan_vs_plain=scan_check,
+                   scan_equals_step_loop=scan_gen == gen, first_tokens=gen[:8],
+                   logits_err=lv["max_abs_err"], logits_tol=lv["tol"],
+                   logits_top2_gap=lv["top2_gap"], moe_batches=batches)
+        emit("families_full_width", **row)
+        rows.append(row)
+        # the engine's captured steps close over the engine: a cycle
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, rows=rows)
+
+
 # -- phase 10: llm-bench on the card ------------------------------------------------
 
 # the port's llm-bench at modest steps, and the kernels each run must launch
@@ -2359,6 +2808,9 @@ BENCH_CLI_RUNS = [
     (["--paged", "--batch", "8", "--steps", "32"],
      ("qmatmul", "paged_flash_decode_attention", "flash_decode_attention")),
     (["--spec", "--steps", "32"], ("qmatmul", "flash_decode_attention")),
+    # phi-2 2.7B (bf16, q4_0) and the synthetic MoE (q4_0): K2 at D 80
+    (["--configs", "phi2,phi2_q4_0,moe_q4_0", "--skip-ttft", "--steps", "32"],
+     ("qmatmul", "flash_decode_attention")),
 ]
 
 
@@ -2427,7 +2879,10 @@ def bench_cli_full_width(torch):
     for m in ("llama2_7b_q4_0_decode_tokens_per_s_per_chip",
               "llama2_7b_bf16_decode_tokens_per_s_per_chip",
               "tinyllama_1.1b_q4_0_PAGED_decode_tokens_per_s_b8_bs64",
-              "tinyllama_1.1b_q4_0_ttft_p50_prompt512"):
+              "tinyllama_1.1b_q4_0_ttft_p50_prompt512",
+              "phi2_2.7b_bf16_decode_tokens_per_s_per_chip",
+              "phi2_2.7b_q4_0_decode_tokens_per_s_per_chip",
+              "synthetic_moe_8e_top2_q4_0_decode_tokens_per_s_per_chip"):
         if m not in metrics:
             fail(f"llm-bench: row {m} missing")
     lv = llama2_7b_step_vs_plain(torch)
@@ -2444,16 +2899,26 @@ CLI_CASES = {"flash_decode_attention": dict(cache="f32", pos=1000),
 # further cases reported beside the pick: K4 with f32 q, K1 at prefill rows
 EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q="f32"),
                                        "f32_q_bf16_cache_case": dict(T=512, cache="bf16",
-                                                                     q="f32")},
+                                                                     q="f32"),
+                                       "phi2_d80_case": dict(D=80)},
                "qmatmul": {"prefill_case": dict(weight="w13", kind="q4_0", rows=512),
                            "verify_window_case": dict(weight="w13", kind="q4_0", rows=5),
                            "verify_window_b8_case": dict(weight="w13", kind="q4_0",
                                                          rows=BENCH_VERIFY_ROWS),
                            **{f"{n}_7b_case": dict(weight=f"{n}_7b", rows=1)
-                              for n in ("wqkv", "wo", "w13", "w2", "wcls")}},
-               "flash_decode_attention": {"llama2_7b_case": dict(D=128, Hkv=32)},
+                              for n in ("wqkv", "wo", "w13", "w2", "wcls")},
+                           "mixtral_w1e_slice_case": dict(weight="mixtral_w1e_slice"),
+                           "mixtral_w2e_slice_case": dict(weight="mixtral_w2e_slice"),
+                           "qwen2_wqkv_case": dict(weight="qwen2_wqkv", x="float32"),
+                           "qwen2_wqkv_bf16_case": dict(weight="qwen2_wqkv",
+                                                        x="bfloat16")},
+               "flash_decode_attention": {"llama2_7b_case": dict(D=128, Hkv=32),
+                                          "phi2_d80_case": dict(D=80),
+                                          "qwen2_g7_case": dict(H=28, Hkv=4)},
+               "flash_decode_fused": {"phi2_d80_case": dict(D=80)},
                "paged_flash_decode_attention": {"batch1_case": dict(pool="bf16", B=1),
-                                                "bs64_case": dict(pool="bf16", BS=64, B=8)},
+                                                "bs64_case": dict(pool="bf16", BS=64, B=8),
+                                                "phi2_d80_case": dict(D=80)},
                "paged_flash_decode_q": {"batch1_case": dict(pool="int8", B=1)}}
 
 # what the paged cases report of their launch: splits, kernels a call
@@ -2521,8 +2986,9 @@ def main() -> int:
     f32 = f32_full_width(torch)
     kq = kquant_full_width(torch)
     torch.cuda.empty_cache()
+    fam = families_full_width(torch)
     bc = bench_cli_full_width(torch)
-    phases = (fw, sc, sv, hs, mk, f32, kq, bc)
+    phases = (fw, sc, sv, hs, mk, f32, kq, fam, bc)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     def case(name, pick):

@@ -5,9 +5,10 @@ stand-in with head_dim 128 and one q head a kv head):
 - every row family prints JSON lines whose metric and unit are the names
   tpu_llm.runtime.bench_cli's f-strings give for the same args (the JAX
   bench run with its builders, timers and engine stubbed out, so only its
-  printing runs), and the rows waiting for later slices exit 2;
-- synth_quant_llama / _synth_qtensor / random_llama_params give the JAX
-  package's tree, kinds, shapes and dtypes for every kind and switch (the
+  printing runs; phi-2 and the synthetic MoE at shrunk configs), and the
+  rows waiting for later slices (mamba*, the parallel rows) exit 2;
+- synth_quant_llama / _synth_qtensor / random_llama_params / _build_phi2
+  / _build_moe give the JAX package's tree, kinds, shapes and dtypes for every kind and switch (the
   values differ: the RNGs do);
 - the timed decode program emits the greedy tokens of a plain
   decode_step loop over the same weights, exactly; the paged program
@@ -46,13 +47,24 @@ ROWS = {
                    "--skip-ttft"],
     "paged": ["--paged", "--batch", "3", "--steps", "3", "--block-size", "16"],
     "spec": ["--spec", "--steps", "6", "--max-seq", "256", "--spec-k", "3"],
+    "families": ["--configs", "phi2,phi2_q4_0,phi2_q8_0,moe,moe_q4_0,moe_q8_0", "--steps",
+                 "3", "--max-seq", "256", "--skip-ttft"],
 }
+# phi-2 and the synthetic MoE shrunk (dims of 64 / 128: q4_0 / q8_0 blocks)
+TINY_PHI2 = dict(TINY, n_kv_heads=4, rope_variant="neox", rope_dims=8,
+                 parallel_block=True, use_layernorm=True, use_bias=True, act="gelu",
+                 gated_mlp=False)
+TINY_MOE = dict(TINY, rope_variant="neox", n_experts=4, n_experts_used=2)
 
 
 @pytest.fixture
 def tiny(monkeypatch):
+    from tpu_llm_torch import config as tconfig
+
     monkeypatch.setattr(TB, "tinyllama_1_1b", lambda: LlamaConfig(**TINY))
     monkeypatch.setattr(TB, "llama2_7b", lambda: LlamaConfig(**TINY_7B))
+    monkeypatch.setattr(tconfig, "phi2_2_7b", lambda: LlamaConfig(**TINY_PHI2))
+    monkeypatch.setattr(TB, "moe_config", lambda: LlamaConfig(**TINY_MOE))
 
 
 def _jax_rows(argv, monkeypatch, capsys):
@@ -84,6 +96,8 @@ def _jax_rows(argv, monkeypatch, capsys):
     monkeypatch.setattr(JB, "synth_quant_llama", lambda cfg, kind: None)
     monkeypatch.setattr(JB, "_build_llama2_7b", lambda quant: (
         {"layers": [], "final_norm": None}, jconfig.llama2_7b()))
+    monkeypatch.setattr(JB, "_build_phi2", lambda quant: ({}, jconfig.phi2_2_7b()))
+    monkeypatch.setattr(JB, "_build_moe", lambda quant: ({}, jconfig.llama2_7b()))
     monkeypatch.setattr(JB, "_decode_tok_s", lambda *a, **k: 1.0)
     monkeypatch.setattr(JB, "_ttft_p50", lambda *a, **k: 0.001)
     monkeypatch.setattr(jtiming, "slope_time_s", lambda *a, **k: 1.0)
@@ -115,7 +129,7 @@ def test_rows_carry_the_jax_metric_names(family, tiny, monkeypatch, capsys):
                    for r in got)
 
 
-@pytest.mark.parametrize("argv", [["--configs", "phi2"], ["--configs", "q4_0,moe_q4_0"],
+@pytest.mark.parametrize("argv", [["--configs", "mamba_bf16"], ["--configs", "q4_0,mamba"],
                                   ["--configs", "mamba"], ["--scaling"], ["--sharded"],
                                   ["--serve-tp", "2"]])
 def test_later_rows_exit_2(argv, capsys):
@@ -176,6 +190,31 @@ def test_random_and_7b_params_match_jax_tree(monkeypatch):
         (got, gcfg), (want, wcfg) = TB._build_llama2_7b(quant, "cpu"), \
             JB._build_llama2_7b(quant)
         assert _tree(got) == _tree(want) and gcfg.head_dim == wcfg.head_dim == 128
+
+
+@pytest.mark.parametrize("quant", ["bf16", "q4_0", "q8_0"])
+def test_phi2_and_moe_trees_match_jax(quant, monkeypatch):
+    """_build_phi2 / _build_moe give the JAX package's tree, kinds, shapes
+    and dtypes at a shrunk config (their ``cfg`` parameter here,
+    the JAX package's config factories patched there)."""
+    import tpu_llm.models.llama  # noqa: F401  (imported before LlamaConfig is patched)
+    from tpu_llm.models.llama import unstack_layers
+
+    got, gcfg = TB._build_phi2(quant, "cpu", LlamaConfig(**TINY_PHI2))
+    monkeypatch.setattr(jconfig, "phi2_2_7b", lambda: jconfig.LlamaConfig(**TINY_PHI2))
+    want, wcfg = JB._build_phi2(quant)
+    if quant == "bf16":
+        want = want if isinstance(want["layers"], list) else unstack_layers(want)
+    assert _tree(got) == _tree(want) and gcfg == LlamaConfig(**TINY_PHI2)
+    if quant != "bf16":
+        got, gcfg = TB._build_moe(quant, "cpu", LlamaConfig(**TINY_MOE))
+        jmoe = jconfig.LlamaConfig(**TINY_MOE)
+        monkeypatch.setattr(jconfig, "LlamaConfig", lambda **kw: jmoe)
+        want, wcfg = JB._build_moe(quant)
+        assert _tree(got) == _tree(want) and gcfg.n_experts == wcfg.n_experts == 4
+        assert got["layers"][0]["w1e"].q.shape[0] == 4      # stacked expert planes
+    moe = TB.moe_config()
+    assert (moe.dim, moe.hidden_dim, moe.n_layers, moe.n_experts) == (1024, 2816, 8, 8)
 
 
 # -- the timed programs ----------------------------------------------------------

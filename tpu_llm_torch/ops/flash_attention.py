@@ -65,9 +65,16 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
 _FLOAT_PLANES = (torch.float32, torch.bfloat16)
 
 
+def kernel_head_dim(D: int) -> bool:
+    """The head widths the attention kernels take (K2-K6): a multiple of
+    16 up to 128. A model with another width (gemma's 256) attends on the
+    plain path, as the JAX package routes a width its kernels refuse."""
+    return D % 16 == 0 and 16 <= D <= 128
+
+
 def _check_kernel_args(q, k_cache, v_cache, plane_dtypes=_FLOAT_PLANES, what="cache"):
     D = q.shape[-1]
-    if D % 16 or not 16 <= D <= 128:
+    if not kernel_head_dim(D):
         raise ValueError(f"head_dim {D}: the attention kernels take a multiple "
                          f"of 16 up to 128")
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -1,6 +1,9 @@
-"""RMSNorm: ``x * w / sqrt(mean(x*x) + eps)`` — eps is added to the MEAN
-SQUARE inside the sqrt (the Fortran reference's form). Computed in f32
-whatever the storage dtype, then cast back (``tpu_llm/ops/norms.py``)."""
+"""Norms (``tpu_llm/ops/norms.py``), computed in f32 whatever the storage
+dtype, then cast back.
+
+- RMSNorm: ``x * w / sqrt(mean(x*x) + eps)``, eps added to the MEAN
+  SQUARE inside the sqrt (the Fortran reference's form).
+- LayerNorm with scale and bias (phi-2's blocks)."""
 
 from __future__ import annotations
 
@@ -14,3 +17,12 @@ def rmsnorm(x: torch.Tensor, w, eps: float = 1e-5) -> torch.Tensor:
     if w is not None:
         out = out * w.float()
     return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * w.float() + b.float()).to(x.dtype)

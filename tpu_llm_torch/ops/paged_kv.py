@@ -34,7 +34,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from tpu_llm_torch.ops.attention import gqa_attention
-from tpu_llm_torch.ops.flash_attention import (flash_gqa_attention,
+from tpu_llm_torch.ops.flash_attention import (flash_gqa_attention, kernel_head_dim,
                                                paged_flash_decode_attention,
                                                paged_flash_decode_q)
 from tpu_llm_torch.ops.kv_cache import QuantKV, gather_scale_pool, quantize_kv
@@ -162,7 +162,7 @@ def paged_gqa_attention(q: torch.Tensor, kv: PagedKV, q_positions: torch.Tensor,
     (prefill), which opens the flash prefill route."""
     B, T, H, D = q.shape
     on_card = q.device.type == "cuda"
-    if T == 1 and on_card:
+    if T == 1 and on_card and kernel_head_dim(D):
         pos = q_positions.reshape(-1).to(torch.int32).expand(B)
         if kv.quantized:
             return paged_flash_decode_q(q, kv.k_pool, kv.v_pool, kv.k_scale,
@@ -180,7 +180,7 @@ def paged_gqa_attention(q: torch.Tensor, kv: PagedKV, q_positions: torch.Tensor,
     # (the reference's gate). Causal masking makes the lengths mask
     # redundant: every slot <= q_pos was written by this call or before.
     if (on_card and isinstance(offset, int) and T >= 256 and T % 256 == 0
-            and S % 256 == 0 and D in (64, 128)):
+            and S % 256 == 0 and kernel_head_dim(D)):
         return flash_gqa_attention(q, k, v, offset)
     return gqa_attention(q, k, v, q_positions, kv_lengths=kv.lengths)
 

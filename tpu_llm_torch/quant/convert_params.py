@@ -104,8 +104,11 @@ def unpack_params_int4(params: Dict, pack_scales=False) -> Dict:
 
 def fuse_llama_layers(layers: List[Dict], name=lambda i, key: f"layer {i} {key}"
                       ) -> List[Dict]:
-    """wq|wk|wv -> wqkv, w1|w3 -> w13, concatenated along the output (N)
-    axis — packing is per column, so QTensor planes concatenate directly.
+    """wq|wk|wv -> wqkv (and bq|bk|bv -> bqkv), w1|w3 -> w13, concatenated
+    along the output (N) axis — packing is per column, so QTensor planes
+    concatenate directly. The JAX package leaves biased layers unfused;
+    here the biases fuse with their projection (a bias add commutes with
+    the split). Stacked expert planes (w1e, w3e, w2e) stay as they are.
     ``name(i, key)`` names a tensor in the error for mixed kinds."""
     out = []
     for i, lp in enumerate(layers):
@@ -114,6 +117,8 @@ def fuse_llama_layers(layers: List[Dict], name=lambda i, key: f"layer {i} {key}"
             if parts[0] in lp:
                 lp[fused] = _concat_n([name(i, p) for p in parts],
                                       [lp.pop(p) for p in parts])
+        if "bq" in lp and "wqkv" in lp:
+            lp["bqkv"] = torch.cat([lp.pop("bq"), lp.pop("bk"), lp.pop("bv")])
         out.append(lp)
     return out
 
@@ -126,8 +131,9 @@ def fold_rope_interleave(params: Dict, cfg):
     q.k is invariant under the shared permutation and v/wo are untouched,
     so logits are unchanged up to f32 summation order. Cache contents
     become head-dim-permuted. Returns (params', cfg') with
-    cfg'.rope_variant == "neox"; a no-op for other variants."""
-    if cfg.rope_variant != "interleaved":
+    cfg'.rope_variant == "neox"; a no-op for other variants and for
+    partial RoPE. Biases (bqkv, or bq / bk) take the same permutation."""
+    if cfg.rope_variant != "interleaved" or cfg.rope_dims is not None:
         return params, cfg
     D = cfg.head_dim
     base = np.concatenate([np.arange(0, D, 2), np.arange(1, D, 2)])
@@ -147,9 +153,14 @@ def fold_rope_interleave(params: Dict, cfg):
         if "wqkv" in lp:
             full = np.concatenate([qperm, E + kperm, E + KV + np.arange(KV)])
             lp["wqkv"] = permute(lp["wqkv"], full)
+            if "bqkv" in lp:
+                lp["bqkv"] = permute(lp["bqkv"], full)
         else:
             lp["wq"] = permute(lp["wq"], qperm)
             lp["wk"] = permute(lp["wk"], kperm)
+            if "bq" in lp:
+                lp["bq"] = permute(lp["bq"], qperm)
+                lp["bk"] = permute(lp["bk"], kperm)
         return lp
 
     out = dict(params)
@@ -182,7 +193,10 @@ def fold_norms_requant(params: Dict, cfg) -> Dict:
     fold exactly; QTensors are dequantized, row-scaled and requantized in
     their own kind (one extra rounding: ``llm --fold-norms`` opts in). The
     folded norm entries become None (a weightless rmsnorm); final_norm
-    folds into an untied classifier."""
+    folds into an untied classifier. The rmsnorm llama family only: no
+    LayerNorm, no parallel block's shared norm, no MoE router."""
+    if cfg.use_layernorm or cfg.parallel_block or cfg.n_experts:
+        raise NotImplementedError("norm folding supports the rmsnorm llama family")
     def fold_into(w, weight):
         nw = w.float().cpu().numpy()
         if isinstance(weight, QTensor):

@@ -16,9 +16,15 @@ package's metric names. Rows:
   repetitive and a random 128-token prompt, plain and with prompt-lookup
   speculation (``--spec-k``): tokens/s and tokens per verify forward.
 
-The phi2*, moe* and mamba* configs, --scaling, --sharded and --serve-tp
-need model families and parallelism the port does not have yet: they
-exit 2 naming the ROADMAP.md item they wait for, and print no row.
+- ``phi2`` / ``phi2_q4_0`` / ``phi2_q8_0``: phi-2 2.7B shapes (parallel
+  block, biases, GELU MLP, partial neox RoPE), dense bf16 or packed;
+  ``moe`` / ``moe_q4_0`` / ``moe_q8_0``: the JAX package's synthetic
+  Mixtral-style MoE (dim 1024, 8 experts, top-2, 8 layers), whose batch-1
+  decode gathers the 2 selected experts a layer on the device.
+
+The mamba* configs, --scaling, --sharded and --serve-tp need a model
+family and parallelism the port does not have yet: they exit 2 naming
+the ROADMAP.md item they wait for, and print no row.
 
 Weights are random, drawn on the device from a seeded ``torch.Generator``
 (throughput does not depend on their values), packed in the layouts the
@@ -50,9 +56,7 @@ from tpu_llm_torch.config import llama2_7b, tinyllama_1_1b
 REFERENCE_TOK_S = 7.3
 
 # the ROADMAP.md queue 1 item each refused row waits for
-_LATER = {"phi2": "item 7, other model families (phi-2)",
-          "moe": "item 7, other model families (MoE)",
-          "mamba": "item 7, other model families (Mamba)",
+_LATER = {"mamba": "item 7, other model families (Mamba)",
           "--scaling": "item 9, parallelism", "--sharded": "item 9, parallelism",
           "--serve-tp": "item 9, parallelism"}
 
@@ -173,6 +177,73 @@ def _build_llama2_7b(quant: str = "q4_0", device="cuda"):
         return synth_quant_llama(cfg, quant, device=device), cfg
     params = random_llama_params(cfg, device=device)
     return dict(params, layers=fuse_llama_layers(params["layers"])), cfg
+
+
+def _build_phi2(quant: str = "bf16", device="cuda", cfg=None):
+    """Random phi-2 2.7B-shaped weights (``cfg``: phi2_2_7b unless given),
+    the JAX package's tree: per-layer, unfused wq / wk / wv, zero biases,
+    LayerNorm weights of ones and biases of zeros; projections and the
+    classifier dense bf16, or packed q4_0 / q8_0 drawn on the device."""
+    from tpu_llm_torch.config import phi2_2_7b
+
+    cfg = cfg or phi2_2_7b()
+    g = _generator(0, device)
+    E, F, V = cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    packed = quant in ("q4_0", "q8_0")
+
+    def w(K, N):
+        if packed:
+            return _synth_qtensor(g, K, N, quant)
+        return (torch.randn((K, N), generator=g, device=device) * 0.02).bfloat16()
+
+    zeros = lambda n: torch.zeros(n, device=device)  # noqa: E731
+    ones = lambda n: torch.ones(n, device=device)  # noqa: E731
+    emb = (torch.randn((V, E), generator=g, device=device) * 0.02).bfloat16()
+    layers = [{"attn_norm": ones(E), "attn_norm_b": zeros(E),
+               "wq": w(E, E), "wk": w(E, E), "wv": w(E, E), "wo": w(E, E),
+               "bq": zeros(E), "bk": zeros(E), "bv": zeros(E), "bo": zeros(E),
+               "w3": w(E, F), "b3": zeros(F), "w2": w(F, E), "b2": zeros(E)}
+              for _ in range(cfg.n_layers)]
+    return {"tok_emb": emb, "final_norm": ones(E), "final_norm_b": zeros(E),
+            "wcls": w(E, V), "bcls": zeros(V), "layers": layers}, cfg
+
+
+def moe_config():
+    """The JAX package's synthetic Mixtral-style MoE: dim 1024, ffn 2816,
+    8 layers, 16/8 heads, 8 experts, top-2, vocab 32000, neox RoPE."""
+    from tpu_llm_torch.config import LlamaConfig
+
+    return LlamaConfig(dim=1024, hidden_dim=2816, n_layers=8, n_heads=16, n_kv_heads=8,
+                       vocab_size=32000, seq_len=2048, rope_variant="neox",
+                       n_experts=8, n_experts_used=2)
+
+
+def _build_moe(quant: str = "q4_0", device="cuda", cfg=None):
+    """Random MoE weights (``cfg``: moe_config unless given) drawn on the
+    device: fused wqkv, wo and the classifier packed, an f32 router (std
+    0.05), the experts' w1e / w3e (Ex, E, F) and w2e (Ex, F, E) as stacked
+    packed planes."""
+    from tpu_llm_torch.quant.qtensor import qmap
+
+    cfg = cfg or moe_config()
+    g = _generator(0, device)
+    E, F, V, KV, EX = cfg.dim, cfg.hidden_dim, cfg.vocab_size, cfg.kv_dim, cfg.n_experts
+
+    def qt(K, N):
+        return _synth_qtensor(g, K, N, quant)
+
+    def qte(K, N):
+        return qmap(lambda *ps: torch.stack(ps), *[qt(K, N) for _ in range(EX)])
+
+    ones = lambda: torch.ones(E, device=device)  # noqa: E731
+    layers = [{"attn_norm": ones(), "ffn_norm": ones(), "wqkv": qt(E, E + 2 * KV),
+               "wo": qt(E, E),
+               "router": torch.randn((E, EX), generator=g, device=device) * 0.05,
+               "w1e": qte(E, F), "w3e": qte(E, F), "w2e": qte(F, E)}
+              for _ in range(cfg.n_layers)]
+    emb = (torch.randn((V, E), generator=g, device=device) * 0.02).bfloat16()
+    return {"tok_emb": emb, "final_norm": ones(), "wcls": qt(E, V),
+            "layers": layers}, cfg
 
 
 # -- the timed programs ----------------------------------------------------------
@@ -369,9 +440,8 @@ def _refused(args, names) -> list:
         ("--scaling", args.scaling), ("--sharded", args.sharded),
         ("--serve-tp", args.serve_tp)) if on]
     for name in names:
-        family = next((f for f in ("phi2", "moe", "mamba") if name.startswith(f)), None)
-        if family:
-            out.append((name, _LATER[family]))
+        if name.startswith("mamba"):
+            out.append((name, _LATER["mamba"]))
     return out
 
 
@@ -414,6 +484,19 @@ def main(argv=None) -> int:
             del lparams
             _row(f"llama2_7b_{quant}{'_foldnorm' if foldnorm else ''}"
                  f"_decode_tokens_per_s_per_chip", tok_s, "tok/s", None)
+            continue
+        if name.startswith(("phi2", "moe")):
+            # phi2 | phi2_q4_0 | phi2_q8_0 ; moe | moe_q4_0 | moe_q8_0
+            phi2 = name.startswith("phi2")
+            quant = (name[5:] or "bf16") if phi2 else (name[4:] or "q4_0")
+            fparams, fcfg = (_build_phi2 if phi2 else _build_moe)(quant, device)
+            tok_s = _decode_tok_s(fparams, fcfg, args.steps, args.batch,
+                                  min(args.max_seq, fcfg.seq_len), args.prompt_len,
+                                  device=device)
+            del fparams
+            _row(f"phi2_2.7b_{quant}_decode_tokens_per_s_per_chip" if phi2 else
+                 f"synthetic_moe_8e_top2_{quant}_decode_tokens_per_s_per_chip",
+                 tok_s, "tok/s", None)
             continue
         if name in ("q2_k", "q3_k", "q4_k", "q5_k", "q6_k"):
             params = synth_quant_llama(cfg, kind=name, device=device)

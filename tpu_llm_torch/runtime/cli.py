@@ -91,7 +91,7 @@ def main(argv=None) -> int:
     import torch
 
     from tpu_llm_torch.io.gguf import GGUFFile
-    from tpu_llm_torch.models.llama import load_gguf
+    from tpu_llm_torch.models.llama import load_model
     from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
     from tpu_llm_torch.tokenizers.bpe import BPETokenizer
 
@@ -102,7 +102,7 @@ def main(argv=None) -> int:
 
     t_load = time.perf_counter()
     gguf = GGUFFile(args.model)
-    params, cfg = load_gguf(gguf, dtype_policy=args.dtype, device=device)
+    params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
     if args.fold_norms:
         from tpu_llm_torch.quant.convert_params import fold_norms_requant
 
@@ -132,8 +132,8 @@ def main(argv=None) -> int:
     engine = Engine(params, adapter, max_seq=max_seq, device=device)
     draft_engine = None
     if args.draft:
-        dparams, dcfg = load_gguf(GGUFFile(args.draft), dtype_policy=args.dtype,
-                                  device=device)
+        dparams, dcfg = load_model(GGUFFile(args.draft), dtype_policy=args.dtype,
+                                   device=device)
         if args.rope != "interleaved" and args.rope != dcfg.rope_variant:
             dcfg = dataclasses.replace(dcfg, rope_variant=args.rope)
         draft_engine = Engine(dparams, ModelAdapter.llama(dcfg, cache_dtype=cache_dtype,
@@ -180,7 +180,12 @@ def main(argv=None) -> int:
     print(f" Inference time: {res.total_s:10.4f} seconds")
     print(f" {res.tokens_per_s:10.4f} tokens/second (decode)")
     print(f" TTFT: {res.ttft_s * 1000:10.2f} ms")
-    if args.timings:
+    if args.timings and (cfg.n_experts or cfg.parallel_block or cfg.q_dim != cfg.dim):
+        # the buckets run the dense llama layer's pieces (as in the JAX
+        # package, whose report stops on these layouts)
+        print(" Timings: the per-bucket report covers dense llama-layout models "
+              "(no MoE, no parallel block, q width == dim)")
+    elif args.timings:
         from tpu_llm_torch.runtime.phase_timing import format_report, measure_phase_times
 
         res.phase_times = measure_phase_times(params, cfg, batch=1, pos=len(res.tokens),

@@ -44,7 +44,7 @@ def _phase_bodies(cfg: LlamaConfig, params, batch: int, positions: torch.Tensor)
     """[(bucket, body(carry) -> new carry)] at decode shapes; the
     attention bucket's carry is x, its caches are updated in place."""
     from tpu_llm_torch.models import llama as M
-    from tpu_llm_torch.ops.activations import silu
+    from tpu_llm_torch.ops.activations import gelu, silu
     from tpu_llm_torch.ops.attention import update_kv_cache
     from tpu_llm_torch.ops.rope import apply_rope
     from tpu_llm_torch.quant.linear import matmul
@@ -66,8 +66,10 @@ def _phase_bodies(cfg: LlamaConfig, params, batch: int, positions: torch.Tensor)
     def rope_body(x, _):
         q = x.reshape(B, 1, H, D)
         for _lp in layers:
-            qr = apply_rope(q, positions, cfg.rope_theta, cfg.rope_variant)
-            kr = apply_rope(qr[:, :, :Hkv], positions, cfg.rope_theta, cfg.rope_variant)
+            qr = apply_rope(q, positions, cfg.rope_theta, cfg.rope_variant,
+                            cfg.rope_dims, cfg.rope_scaling)
+            kr = apply_rope(qr[:, :, :Hkv], positions, cfg.rope_theta, cfg.rope_variant,
+                            cfg.rope_dims, cfg.rope_scaling)
             q = torch.cat([qr[:, :, :Hkv] + _MIX * kr, qr[:, :, Hkv:]], dim=2)
         return q.reshape(B, 1, E)
 
@@ -93,8 +95,10 @@ def _phase_bodies(cfg: LlamaConfig, params, batch: int, positions: torch.Tensor)
                 F = cfg.hidden_dim
                 h13 = matmul(m, lp["w13"], row_scale=rs)
                 mid = silu(h13[..., :F]) * h13[..., F:]
-            else:
+            elif "w1" in lp:
                 mid = silu(matmul(m, lp["w1"], row_scale=rs)) * matmul(m, lp["w3"], row_scale=rs)
+            else:
+                mid = gelu(matmul(m, lp["w3"], row_scale=rs))
             acc = _MIX * (h + matmul(mid, lp["w2"])) + x
         return acc
 

@@ -72,11 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _load(args, device):
     from tpu_llm_torch.io.gguf import GGUFFile
-    from tpu_llm_torch.models.llama import load_gguf
+    from tpu_llm_torch.models.llama import load_model
     from tpu_llm_torch.tokenizers.bpe import BPETokenizer
 
     gguf = GGUFFile(args.model)
-    params, cfg = load_gguf(gguf, dtype_policy=args.dtype, device=device)
+    params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
     tokenizer = (BPETokenizer.from_gguf(gguf)
                  if "tokenizer.ggml.tokens" in gguf.metadata else None)
     if args.tokenizer:
@@ -100,9 +100,11 @@ def make_engine(args, params, cfg, tokenizer, max_seq, device):
     eos_id = getattr(tokenizer, "eos_id", 2)
     draft = None
     if args.draft:
-        from tpu_llm_torch.models.llama import load_gguf
+        from tpu_llm_torch.io.gguf import GGUFFile
+        from tpu_llm_torch.models.llama import load_model
 
-        dparams, dcfg = load_gguf(args.draft, dtype_policy=args.dtype, device=device)
+        dparams, dcfg = load_model(GGUFFile(args.draft), dtype_policy=args.dtype,
+                                   device=device)
         draft = (dparams, ModelAdapter.llama(dcfg, cache_dtype=torch.bfloat16,
                                              bos_id=bos_id, device=device))
     if args.paged:
