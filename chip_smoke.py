@@ -174,10 +174,38 @@ Phases, one JSON line each:
    q4_0 and bf16 (16 steps); --paged at batch 8 over 64-row blocks beside
    the dense cache; --spec (the BatchEngine host loop, batch 1 and 8,
    plain and k = 4, with tokens per verify forward); phi2, phi2_q4_0 and
-   moe_q4_0 (32 steps). Each invocation is a
+   moe_q4_0 (32 steps); mamba and mamba_bf16 (32 steps, no ported kernel
+   on their path). Each invocation is a
    main-path run with the kernels it must launch; then one step of the
    7b_q4_0 program (K1 at the 7B projections, K2 at D 128) held against
    the plain path.
+11. mamba full width — Mamba-130M (768 / 24 layers) and Mamba-790M (1536 /
+   48) at their published widths and depths, vocab 50280, seeded random
+   weights drawn on the card, written by write_packed and read back by
+   load_packed; f32 and bf16 (cast_weights): a 16-token prompt and 64
+   greedy tokens on the step loop and on the captured graph (--scan),
+   every token held against the sequential path (the step recurrence,
+   teacher-forced: its argmax, or within 1e-3 (f32) / 2e-2 (bf16) *
+   max|logit| of it); TTFT at 16 and 512 tokens (the parallel scan); the
+   first-token logits against the sequential path at 1e-3 (f32) / 2e-2
+   (bf16) * max|logit|; the graph step profiled (device ms and kernels a
+   step); peak memory; the bytes a token must read and their time at
+   3.35 TB/s. 130M f32 also runs BatchEngine at batch 8 over 16 requests.
+   No ported kernel is on the Mamba path: its counts stay 0.
+12. mamba_cli — `llm-ssm` as a subprocess on the 130M file, with a
+   tokenizer.bin made by --convert-tokenizer from a 50280-id byte-level
+   tokenizer.json written here: the output contract with and without
+   --scan, the same text both ways; `llm-serve -m X.bin` for 4 prompts.
+13. checkpoint_tools — TinyLlama widths (dim 2048, ffn 5632, 32 / 4
+   heads, vocab 32000) at 4 layers, Q4_0, written here: `llm-load -o -t
+   --cache-out`; `llm --ak -s` against `llm --dtype f32` on the GGUF and
+   `llm -m X.npz` against `--dtype native` (the same greedy text); a
+   2-shard gguf-split (every tensor's bytes and loaded planes equal, the
+   same text); `llm-serve --paged -m X.npz`, 4 requests.
+14. perplexity — compute_ppl over a 1024-token eval_stream on the phase-13
+   model, card against the plain path on the card (rel 1e-3): f32 and
+   q4_0 at window 512, f32 at window 1024 (K4 takes the prefill); then
+   dtype_table's f32 / q8_0 / q4_0 / q4_k rows at window 512.
 Each main-path run starts with every launch count at 0 and reads the
 counts after; a kernel of the path that never launched fails the run.
 
@@ -1338,6 +1366,7 @@ def profile_busy(torch, run, steps: int, groups=None):
         return dict(device_busy_share="not measured", steps=steps)
     out = dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
                device_ms_per_step=busy_us / steps / 1e3,
+               kernels_per_step=sum(c for _, _, c in rows) / steps,
                device_busy_share=busy_us / wall_us,
                top=[dict(kernel=k[:80], ms_per_step=us / steps / 1e3,
                          calls_per_step=c / steps) for us, k, c in rows[:10]])
@@ -2811,6 +2840,8 @@ BENCH_CLI_RUNS = [
     # phi-2 2.7B (bf16, q4_0) and the synthetic MoE (q4_0): K2 at D 80
     (["--configs", "phi2,phi2_q4_0,moe_q4_0", "--skip-ttft", "--steps", "32"],
      ("qmatmul", "flash_decode_attention")),
+    # Mamba-130M f32 and bf16: no ported kernel on its path
+    (["--configs", "mamba,mamba_bf16", "--steps", "32"], ()),
 ]
 
 
@@ -2882,12 +2913,493 @@ def bench_cli_full_width(torch):
               "tinyllama_1.1b_q4_0_ttft_p50_prompt512",
               "phi2_2.7b_bf16_decode_tokens_per_s_per_chip",
               "phi2_2.7b_q4_0_decode_tokens_per_s_per_chip",
-              "synthetic_moe_8e_top2_q4_0_decode_tokens_per_s_per_chip"):
+              "synthetic_moe_8e_top2_q4_0_decode_tokens_per_s_per_chip",
+              "mamba_130m_f32_decode_tokens_per_s_per_chip",
+              "mamba_130m_bf16_decode_tokens_per_s_per_chip"):
         if m not in metrics:
             fail(f"llm-bench: row {m} missing")
     lv = llama2_7b_step_vs_plain(torch)
     torch.cuda.empty_cache()
     return dict(runs=runs, total=total, rows=rows, logits_7b=lv)
+
+
+# -- phase 11: Mamba at full width ---------------------------------------------------
+
+MAMBA_NEW = 64         # greedy tokens a Mamba run
+MAMBA_TIE = {"f32": 1e-3, "bf16": 2e-2}   # near-tie and logits rules, x max|logit|
+
+
+def mamba_configs():
+    """Mamba-130M and -790M at the published widths and depths (HF
+    state-spaces/mamba-130m, -790m): nothing cut."""
+    from tpu_llm_torch.config import mamba_130m, mamba_790m
+
+    return {"mamba_130m": mamba_130m(), "mamba_790m": mamba_790m()}
+
+
+def write_random_mamba(torch, cfg, path: str, seed: int):
+    """Seeded random weights in the JAX package's llm-bench distribution
+    (N(0, 0.02), norms around 1, A_log = |.| + 0.1), drawn on the card, in
+    the packed file's torch orientation, written by write_packed."""
+    from tpu_llm_torch.io.mamba_ckpt import write_packed
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    E, di, ds, dr, dc = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.dt_rank_, cfg.d_conv
+    L, V = cfg.n_layers, cfg.vocab_size
+
+    def s(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).cpu().numpy()
+
+    arrays = {"tok_emb": s(V, E), "norm_f": s(E) + 1.0, "wcls": s(V, E), "D": s(L, di),
+              "in_proj": s(L, 2 * di, E), "conv_w": s(L, di, dc), "conv_b": s(L, di),
+              "x_proj": s(L, dr + 2 * ds, di), "dt_proj": s(L, di, dr), "dt_bias": s(L, di),
+              "A_log": abs(s(L, di, ds)) + 0.1, "out_proj": s(L, E, di),
+              "norm": s(L, E) + 1.0}
+    write_packed(path, arrays, cfg)
+    return os.path.getsize(path)
+
+
+def mamba_sequential_logits(torch, params, cfg, ids):
+    """The plain path: teacher-forced one token at a time (the step
+    recurrence, ``sequential=True``), every position's logits."""
+    from tpu_llm_torch.models import mamba as M
+
+    with torch.inference_mode():
+        state = M.init_state(cfg, 1, "cuda")
+        h, _ = M.forward(params, cfg, torch.tensor([ids], device="cuda"), state,
+                         sequential=True)
+        return M.lm_head(params, cfg, h)[0]
+
+
+def mamba_greedy_vs_sequential(torch, label, params, cfg, prompt, tokens, tie_rel):
+    """Each greedy token is the sequential path's argmax at its position,
+    or within ``tie_rel`` * max|logit| of its max (a near-tie)."""
+    logits = mamba_sequential_logits(torch, params, cfg, prompt + tokens[:-1])
+    logits = logits[len(prompt) - 1:]
+    want = torch.tensor(tokens, device="cuda")
+    top = logits.max(dim=-1).values
+    tol = tie_rel * logits.abs().max(dim=-1).values
+    got = logits.gather(1, want[:, None])[:, 0]
+    exact = logits.argmax(dim=-1) == want
+    ok = bool((exact | (got >= top - tol)).all())
+    row = dict(run=label, steps=len(tokens), exact=int(exact.sum()),
+               near_tie=int((~exact).sum()), tie_rel=tie_rel, all_within_rule=ok)
+    emit("greedy_vs_plain", **row)
+    if not ok:
+        fail(f"{label}: greedy tokens off the sequential path beyond a near-tie: {row}")
+    return row
+
+
+def mamba_first_logits(torch, label, params, cfg, prompt, rel_tol):
+    """The first token's logits of the engine's route (the prompt padded to
+    its bucket, the parallel scan masked by ``length``) against the
+    sequential path's, within ``rel_tol`` * max|logit|."""
+    from tpu_llm_torch.models import mamba as M
+    from tpu_llm_torch.runtime.engine import _next_bucket
+
+    with torch.inference_mode():
+        toks = torch.zeros((1, _next_bucket(len(prompt))), dtype=torch.long, device="cuda")
+        toks[0, :len(prompt)] = torch.tensor(prompt, device="cuda")
+        h, _ = M.forward(params, cfg, toks, M.init_state(cfg, 1, "cuda"), length=len(prompt))
+        kern = M.lm_head(params, cfg, h[:, len(prompt) - 1])[0]
+    plain = mamba_sequential_logits(torch, params, cfg, prompt)[-1]
+    err = (kern - plain).abs().max().item()
+    tol = rel_tol * plain.abs().max().item()
+    row = dict(run=label, max_abs_err=err, tol=tol, max_abs_logit=plain.abs().max().item(),
+               top1_parallel=int(kern.argmax()), top1_sequential=int(plain.argmax()))
+    emit("logits_vs_plain", **row)
+    if not (torch.isfinite(kern).all() and err <= tol):
+        fail(f"{label}: first-token logits off the sequential path: {row}")
+    return row
+
+
+def mamba_bytes_a_token(params, cfg) -> int:
+    """What one decode token must read: every weight once, the f32 state
+    read and written."""
+    leaves = [params["tok_emb"][:1], params["norm_f"], params["wcls"]]
+    leaves += [v for lp in params["layers"] for v in lp.values()]
+    state = 2 * 4 * cfg.n_layers * (cfg.d_conv + cfg.d_state) * cfg.d_inner
+    return sum(t.numel() * t.element_size() for t in leaves) + state
+
+
+def mamba_batch(torch, params, cfg, runs, total):
+    """BatchEngine, batch 8 over 16 greedy requests of 16-200 prompt tokens
+    and MAMBA_NEW tokens each: aggregate tokens/s."""
+    import numpy as np
+
+    from tpu_llm_torch.runtime.batching import BatchEngine, Request
+    from tpu_llm_torch.runtime.engine import ModelAdapter
+
+    rng = np.random.default_rng(23)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, n)]
+               for n in rng.integers(16, 201, 16)]
+    eng = BatchEngine(params, ModelAdapter.mamba(cfg, "cuda"), batch=8, max_seq=512,
+                      eos_id=-1)
+    eng.submit(Request(prompt=prompts[0], max_new=4))
+    eng.run()                                             # warm-up
+
+    def run():
+        reqs = [eng.submit(Request(prompt=p, max_new=MAMBA_NEW)) for p in prompts]
+        t = time.perf_counter()
+        steps = eng.run()
+        torch.cuda.synchronize()
+        return reqs, steps, time.perf_counter() - t
+
+    (reqs, steps, wall), _ = drive_run(torch, "mamba_130m_batch8_16req",
+                                       run, (), runs, total)
+    n = sum(len(r.tokens) for r in reqs)
+    if n != 16 * MAMBA_NEW:
+        fail(f"mamba BatchEngine: {n} tokens of {16 * MAMBA_NEW}")
+    return dict(batch=8, requests=16, new_tokens=MAMBA_NEW, engine_steps=steps,
+                wall_s=wall, tokens_per_s=n / wall)
+
+
+def mamba_full_width(torch, tmp: str):
+    """Mamba-130M and -790M at full width and depth from seeded random
+    weights written by write_packed and read by load_packed, f32 and bf16
+    (cast_weights), entered at Engine.generate: a 16-token prompt and
+    MAMBA_NEW greedy tokens on the step loop and on the captured graph
+    (--scan), each token held against the sequential path; TTFT of 16- and
+    512-token prompts (the parallel prefill); the first-token logits
+    against the sequential path; peak memory; the bytes a token must read
+    and their time at 3.35 TB/s. 130M f32 also runs BatchEngine at batch
+    8 over 16 requests. The Mamba path launches none of the ported
+    kernels: every count is 0."""
+    import numpy as np
+
+    from tpu_llm_torch.models import mamba as M
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+
+    runs, total, rows, paths = {}, {n: 0 for n in counters()}, [], {}
+    rng = np.random.default_rng(29)
+    for i, (name, cfg) in enumerate(mamba_configs().items()):
+        path = os.path.join(tmp, f"{name}.bin")
+        t0 = time.perf_counter()
+        size = write_random_mamba(torch, cfg, path, seed=50 + i)
+        write_s = time.perf_counter() - t0
+        paths[name] = path
+        t0 = time.perf_counter()
+        params, _ = M.load_packed(path, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if name != "mamba_130m":          # only 130M's file is read again (phase 12)
+            os.remove(path)
+        prompt16 = [int(t) for t in rng.integers(3, cfg.vocab_size, 16)]
+        prompt512 = [int(t) for t in rng.integers(3, cfg.vocab_size, 512)]
+        for dtype in ("f32", "bf16"):
+            if dtype == "bf16":
+                params = M.cast_weights(params)
+                gc.collect()
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            label = f"{name}_{dtype}"
+            engine = Engine(params, ModelAdapter.mamba(cfg, "cuda"), max_seq=1024,
+                            device="cuda")
+            gen = lambda **k: engine.generate(prompt16, n_new=MAMBA_NEW,  # noqa: E731
+                                              add_bos=False, **k)
+            engine.generate(prompt16, n_new=4, add_bos=False)             # warm-up
+            res, _ = drive_run(torch, f"{label}_step_loop", gen, (), runs, total)
+            toks = res.tokens[len(prompt16):]
+            step_check = mamba_greedy_vs_sequential(torch, f"{label}_step_loop", params,
+                                                    cfg, prompt16, toks, MAMBA_TIE[dtype])
+            engine.generate(prompt16, n_new=4, add_bos=False, use_scan=True)  # capture
+            scan, _ = drive_run(torch, f"{label}_scan", lambda: gen(use_scan=True), (),
+                                runs, total)
+            scan_toks = scan.tokens[len(prompt16):]
+            scan_check = mamba_greedy_vs_sequential(torch, f"{label}_scan", params, cfg,
+                                                    prompt16, scan_toks, MAMBA_TIE[dtype])
+            g = engine._graphs[("decode", 0.0)]
+            with torch.inference_mode():        # the graph's buffers are inference tensors
+                prof = graph_profile(torch, g["captured"], 16, lambda: g["i"].zero_())
+            engine.generate(prompt512, n_new=1, add_bos=False)            # warm-up
+            res512, _ = drive_run(torch, f"{label}_prompt512",
+                                  lambda: engine.generate(prompt512, n_new=1,
+                                                          add_bos=False), (), runs, total)
+            lv = mamba_first_logits(torch, f"{label}_first_token", params, cfg, prompt16,
+                                    MAMBA_TIE[dtype])
+            nbytes_tok = mamba_bytes_a_token(params, cfg)
+            row = dict(model=name, dtype=dtype, d_model=cfg.d_model, layers=cfg.n_layers,
+                       vocab=cfg.vocab_size, file_bytes=size, write_s=write_s, load_s=load_s,
+                       step_decode_tok_s=res.tokens_per_s, scan_decode_tok_s=scan.tokens_per_s,
+                       ttft_ms_16=res.ttft_s * 1e3, ttft_ms_512=res512.ttft_s * 1e3,
+                       graph_step_profile=prof, bytes_a_token=nbytes_tok,
+                       bound_ms_a_token=nbytes_tok / HBM_BYTES_PER_S * 1e3,
+                       bound_tok_s=HBM_BYTES_PER_S / nbytes_tok,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       scan_equals_step_loop=scan_toks == toks, first_tokens=toks[:8],
+                       step_loop_vs_plain=step_check, scan_vs_plain=scan_check,
+                       logits_err=lv["max_abs_err"], logits_tol=lv["tol"],
+                       launches=sum(runs[f"{label}_step_loop"].values()))
+            if name == "mamba_130m" and dtype == "f32":
+                row["batch8"] = mamba_batch(torch, params, cfg, runs, total)
+            emit("mamba_full_width", **row)
+            rows.append(row)
+            del engine
+            gc.collect()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, rows=rows, paths=paths)
+
+
+# -- phase 12: llm-ssm and llm-serve -m X.bin -------------------------------------------
+
+def mamba_tokenizer_json(path: str, vocab: int):
+    """A GPT-NeoX-style byte-level tokenizer.json of ``vocab`` ids: the 256
+    byte characters, two merges, fillers ("x00042": no merge builds them,
+    so no text encodes to them, but they decode) and a special token."""
+    from tpu_llm_torch.tokenizers.bpe import _GPT2_DECODER
+
+    # code point -> byte: the byte's character, in byte order
+    chars = [chr(cp) for cp in sorted(_GPT2_DECODER, key=_GPT2_DECODER.get)]
+    v = {c: i for i, c in enumerate(chars)}
+    v["Ġt"], v["he"] = len(v), len(v) + 1
+    for i in range(len(v), vocab - 1):
+        v[f"x{i:05d}"] = i
+    with open(path, "w") as f:
+        json.dump({"model": {"vocab": v, "merges": ["Ġ t", "h e"]},
+                   "added_tokens": [{"id": vocab - 1, "content": "<|endoftext|>",
+                                     "special": True}]}, f)
+
+
+def run_module(argv, timeout=600):
+    """``python -m`` one of the port's programs in a subprocess: (rc,
+    stdout bytes, stderr text)."""
+    res = subprocess.run([sys.executable, "-m", *argv], capture_output=True, cwd=ROOT,
+                         timeout=timeout)
+    return res.returncode, res.stdout, res.stderr.decode(errors="replace")
+
+
+def mamba_cli_phase(torch, tmp: str, packed: str):
+    """`llm-ssm` as a subprocess on the card, on phase 11's Mamba-130M file
+    and a tokenizer.bin made by --convert-tokenizer: the output contract
+    (the streamed text, a blank line, Inference time, tokens/second, TTFT)
+    with and without --scan, the same text both ways; then `llm-serve -m
+    X.bin` for 4 prompts (the dense engine)."""
+    from tpu_llm_torch.runtime import mamba_cli
+
+    tj, tok = os.path.join(tmp, "tokenizer.json"), os.path.join(tmp, "tokenizer.bin")
+    mamba_tokenizer_json(tj, 50280)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if mamba_cli.main(["--convert-tokenizer", tj, "-s", tok]) != 0:
+            fail("llm-ssm --convert-tokenizer failed")
+    texts, rows = {}, []
+    for extra in ([], ["--scan"]):
+        t = time.perf_counter()
+        rc, out, err = run_module(["tpu_llm_torch.runtime.mamba_cli", "-m", packed, "-s", tok,
+                                   "-p", "the theory of the thing", "-n", "48", *extra])
+        text, _, report = out.partition(b"\n Inference time:")
+        lines = report.decode(errors="replace").splitlines()
+        ok = (rc == 0 and text.startswith(b"the theory") and len(lines) >= 3
+              and "tokens/second (decode)" in lines[1] and lines[2].startswith(" TTFT:"))
+        row = dict(flags=extra, rc=rc, s=time.perf_counter() - t,
+                   text=text.decode(errors="replace")[:200],
+                   report=[ln.strip() for ln in lines[:3]], contract=ok)
+        emit("mamba_cli", **row)
+        if not ok:
+            fail(f"llm-ssm {extra}: {row} {err[-800:]}")
+        texts[tuple(extra)] = text
+        rows.append(row)
+    if texts[()] != texts[("--scan",)]:
+        fail("llm-ssm: --scan text differs from the step loop's")
+    prompts = ["the theory", "he said the", "a b c", "the the the"]
+    t = time.perf_counter()
+    rc, out, err = run_module(["tpu_llm_torch.runtime.serve_cli", "-m", packed, "-s", tok,
+                               *[a for p in prompts for a in ("-p", p)], "-n", "32",
+                               "--batch", "4"])
+    reqs = [json.loads(ln) for ln in out.decode().splitlines() if ln.startswith("{")]
+    summary = json.loads([ln for ln in err.splitlines() if ln.startswith("{")][-1]) \
+        if rc == 0 else None
+    row = dict(run="llm-serve -m X.bin", rc=rc, s=time.perf_counter() - t, requests=len(reqs),
+               n_tokens=[r["n_tokens"] for r in reqs], summary=summary)
+    emit("mamba_cli", **row)
+    if rc != 0 or len(reqs) != 4 or any(r["n_tokens"] != 32 for r in reqs) \
+            or summary["engine"] != "dense":
+        fail(f"llm-serve -m X.bin: {row} {err[-800:]}")
+    rows.append(row)
+    return dict(rows=rows, total={n: 0 for n in counters()})
+
+
+# -- phase 13: the checkpoint tools at TinyLlama width -----------------------------------
+
+TOOLS_LAYERS = 4       # TinyLlama's widths, depth cut from 22 (a 22-layer f32 ak is 4.4 GB)
+
+
+def write_tools_gguf(torch, path: str, seed: int = 61):
+    """TinyLlama-1.1B widths (dim 2048, ffn 5632, 32 / 4 heads, vocab 32000)
+    at TOOLS_LAYERS layers: seeded random weights drawn on the card, every
+    projection and the classifier stored Q4_0 by the port's writer, norms
+    and the embedding f32; server_tokenizer's vocabulary in the metadata."""
+    import numpy as np
+
+    from tpu_llm_torch.io import gguf as gg
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dim, hidden, H, KVH, V = 2048, 5632, 32, 4, 32000
+    kv = dim // H * KVH
+
+    def s(*shape, scale=0.02):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).cpu().numpy()
+
+    tok = server_tokenizer(torch, V)
+    meta = {"general.architecture": "llama", "llama.block_count": TOOLS_LAYERS,
+            "llama.embedding_length": dim, "llama.feed_forward_length": hidden,
+            "llama.attention.head_count": H, "llama.attention.head_count_kv": KVH,
+            "llama.context_length": 2048, "llama.rope.freq_base": 10000.0,
+            "llama.attention.layer_norm_rms_epsilon": 1e-5,
+            "tokenizer.ggml.tokens": [t.decode("latin-1") for t in tok.tokens],
+            "tokenizer.ggml.scores": np.zeros(V, np.float32),
+            # server_tokenizer's types: unknown, four control tokens, normal
+            "tokenizer.ggml.token_type": np.asarray([2, 3, 3, 3, 3] + [1] * (V - 5),
+                                                    np.int32),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2}
+    q = lambda a: (a, gg.GGML_Q4_0)  # noqa: E731
+    tensors = {"token_embd.weight": s(V, dim), "output_norm.weight": 1.0 + s(dim),
+               "output.weight": q(s(V, dim, scale=0.05))}
+    for i in range(TOOLS_LAYERS):
+        tensors.update({f"blk.{i}.attn_norm.weight": 1.0 + s(dim),
+                        f"blk.{i}.ffn_norm.weight": 1.0 + s(dim),
+                        f"blk.{i}.attn_q.weight": q(s(dim, dim)),
+                        f"blk.{i}.attn_k.weight": q(s(kv, dim)),
+                        f"blk.{i}.attn_v.weight": q(s(kv, dim)),
+                        f"blk.{i}.attn_output.weight": q(s(dim, dim)),
+                        f"blk.{i}.ffn_gate.weight": q(s(hidden, dim)),
+                        f"blk.{i}.ffn_up.weight": q(s(hidden, dim)),
+                        f"blk.{i}.ffn_down.weight": q(s(dim, hidden))})
+    gg.write_gguf(path, meta, tensors)
+
+
+TOOLS_PROMPT = ["-p", "abc def ghi", "-n", "40"]
+
+
+def tools_cli(torch, name, argv, must, runs, total):
+    """One `llm` run on the card as a main-path run: its first line."""
+    out, counts = drive_run(torch, name, lambda: run_cli(argv + ["--device", "cuda"]), must,
+                            runs, total)
+    return out.split(b"\n")[0], counts
+
+
+def checkpoint_tools(torch, tmp: str):
+    """`llm-load -o -t --cache-out` on a TinyLlama-width Q4_0 GGUF
+    (write_tools_gguf); `llm --ak -s` (dequantized f32, as `llm --dtype
+    f32` on the GGUF) and `llm -m X.npz` (the Q4_0 planes, as `--dtype
+    native`) print the GGUF path's greedy text; a 2-shard gguf-split of
+    the GGUF: every tensor's bytes and every loaded plane equal, and its
+    greedy text the single file's; `llm-serve --paged -m X.npz` completes
+    4 requests."""
+    from tpu_llm_torch.io import gguf as gg
+    from tpu_llm_torch.models.llama import load_gguf
+    from tpu_llm_torch.runtime import convert_cli
+
+    runs, total = {}, {n: 0 for n in counters()}
+    src = os.path.join(tmp, "tools_q4_0.gguf")
+    t = time.perf_counter()
+    write_tools_gguf(torch, src)
+    write_s = time.perf_counter() - t
+    ak, tok, npz = (os.path.join(tmp, n) for n in ("tools.ak", "tools_tok.bin", "tools.npz"))
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if convert_cli.main(["-i", src, "-o", ak, "-t", tok, "--cache-out", npz]) != 0:
+            fail("llm-load failed")
+    load_s = time.perf_counter() - t
+    sizes = {k: os.path.getsize(p) for k, p in (("gguf", src), ("ak", ak), ("npz", npz))}
+    attn = ("flash_decode_attention",)
+    lines = {}
+    lines["gguf_f32"], _ = tools_cli(torch, "llm_gguf_f32", ["-m", src, *TOOLS_PROMPT,
+                                                             "--dtype", "f32"], attn, runs, total)
+    lines["ak"], _ = tools_cli(torch, "llm_ak", ["-m", ak, "--ak", "-s", tok, *TOOLS_PROMPT],
+                               attn, runs, total)
+    lines["gguf_native"], _ = tools_cli(torch, "llm_gguf_native",
+                                        ["-m", src, *TOOLS_PROMPT, "--dtype", "native"],
+                                        ("qmatmul",) + attn, runs, total)
+    lines["npz"], _ = tools_cli(torch, "llm_npz", ["-m", npz, "-s", tok, *TOOLS_PROMPT],
+                                ("qmatmul",) + attn, runs, total)
+    shards = gg.write_gguf_split(gg.GGUFFile(src), os.path.join(tmp, "tools"), 2)
+    whole, merged = gg.GGUFFile(src), gg.GGUFFile(shards[0])
+    same_bytes = list(whole.tensors) == list(merged.tensors) and all(
+        bytes(whole.raw(n)) == bytes(merged.raw(n)) for n in whole.tensors)
+    pa, _ = load_gguf(whole, dtype_policy="native")
+    pb, _ = load_gguf(merged, dtype_policy="native")
+    planes_equal = all(torch.equal(getattr(a[k], p), getattr(b[k], p))
+                       for a, b in zip(pa["layers"], pb["layers"]) for k in a
+                       for p in (("q", "scales") if hasattr(a[k], "kind") else ()))
+    del pa, pb
+    lines["split"], _ = tools_cli(torch, "llm_split", ["-m", shards[0], *TOOLS_PROMPT,
+                                                       "--dtype", "native"],
+                                  ("qmatmul",) + attn, runs, total)
+    prompts = ["abc def", "ghi jkl mno", "abc abc abc", "pqr"]
+    (reqs, summary), _ = drive_run(
+        torch, "llm_serve_paged_npz",
+        lambda: run_serve_cli(["-m", npz, "-s", tok, *[a for p in prompts for a in ("-p", p)],
+                               "-n", "24", "--batch", "4", "--paged", "--device", "cuda"]),
+        ("qmatmul", "paged_flash_decode_attention"), runs, total)
+    row = dict(dim=2048, hidden=5632, heads=[32, 4], vocab=32000, layers=TOOLS_LAYERS,
+               kind="q4_0", write_gguf_s=write_s, llm_load_s=load_s, file_bytes=sizes,
+               shards=[os.path.basename(p) for p in shards], split_bytes_equal=same_bytes,
+               split_planes_equal=planes_equal,
+               ak_equals_gguf_f32=lines["ak"] == lines["gguf_f32"],
+               npz_equals_gguf_native=lines["npz"] == lines["gguf_native"],
+               split_equals_gguf_native=lines["split"] == lines["gguf_native"],
+               text={k: v.decode(errors="replace")[:80] for k, v in lines.items()},
+               serve_paged_npz=dict(n_tokens=[r["n_tokens"] for r in reqs], summary=summary),
+               launches={k: {n: v for n, v in c.items() if v} for k, c in runs.items()})
+    emit("checkpoint_tools", **row)
+    if not (row["ak_equals_gguf_f32"] and row["npz_equals_gguf_native"]
+            and row["split_equals_gguf_native"] and same_bytes and planes_equal):
+        fail(f"checkpoint tools: outputs differ: {row}")
+    if len(reqs) != 4 or any(r["n_tokens"] != 24 for r in reqs):
+        fail(f"llm-serve --paged -m X.npz: {row['serve_paged_npz']}")
+    return dict(runs=runs, total=total, row=row, gguf=src)
+
+
+# -- phase 14: perplexity -----------------------------------------------------------------
+
+def perplexity_phase(torch, gguf: str):
+    """compute_ppl over a 1024-token eval_stream on the TinyLlama-width
+    model of phase 13, on the card against the plain path on the card (rel
+    1e-3): f32 (dense) and q4_0 (native: K1) at window 512, and f32 at
+    window 1024, where K4 takes the prefill (its scores pass 64 MB); then
+    dtype_table's f32 / q8_0 / q4_0 / q4_k rows at window 512."""
+    from tpu_llm_torch.models.llama import load_gguf
+    from tpu_llm_torch.runtime.engine import ModelAdapter
+    from tpu_llm_torch.runtime.perplexity import compute_ppl, dtype_table, eval_stream
+
+    runs, total, rows = {}, {n: 0 for n in counters()}, []
+    ids = eval_stream(1024, vocab=32000, seed=11)
+    for policy, window, must in (("f32", 512, ()), ("native", 512, ("qmatmul",)),
+                                 ("f32", 1024, ("flash_gqa_attention",))):
+        params, cfg = load_gguf(gguf, dtype_policy=policy, device="cuda")
+        adapter = ModelAdapter.llama(cfg, device="cuda")
+        run = lambda: compute_ppl(params, adapter, ids, window=window,  # noqa: E731
+                                  device="cuda")
+        run()                                                           # warm-up
+        t = time.perf_counter()
+        res, counts = drive_run(torch, f"ppl_{policy}_w{window}", run, must, runs, total)
+        s = time.perf_counter() - t
+        with plain_path():
+            plain = run()
+        rel = abs(res.ppl - plain.ppl) / plain.ppl
+        row = dict(policy=policy, window=window, ppl=res.ppl, plain_ppl=plain.ppl,
+                   rel_err=rel, n_tokens=res.n_tokens, s=s,
+                   launches={k: v for k, v in counts.items() if v})
+        emit("perplexity", **row)
+        if not (math.isfinite(res.ppl) and rel <= 1e-3 and res.n_tokens == plain.n_tokens):
+            fail(f"perplexity on the card differs from the plain path: {row}")
+        rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    table, _ = drive_run(torch, "dtype_table",
+                         lambda: dtype_table(gguf, ids[:512], window=512,
+                                             formats=("f32", "q8_0", "q4_0", "q4_k"),
+                                             device="cuda"),
+                         ("qmatmul",), runs, total)
+    emit("perplexity_table", rows=table, s=time.perf_counter() - t)
+    if not all(math.isfinite(r["ppl"]) for r in table):
+        fail(f"dtype_table: {table}")
+    return dict(runs=runs, total=total, rows=rows, table=table)
 
 
 # -- main --------------------------------------------------------------------------
@@ -2987,8 +3499,13 @@ def main() -> int:
     kq = kquant_full_width(torch)
     torch.cuda.empty_cache()
     fam = families_full_width(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        mf = mamba_full_width(torch, tmp)
+        mc = mamba_cli_phase(torch, tmp, mf["paths"]["mamba_130m"])
+        ct = checkpoint_tools(torch, tmp)
+        pp = perplexity_phase(torch, ct["gguf"])
     bc = bench_cli_full_width(torch)
-    phases = (fw, sc, sv, hs, mk, f32, kq, fam, bc)
+    phases = (fw, sc, sv, hs, mk, f32, kq, fam, mf, mc, ct, pp, bc)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     def case(name, pick):

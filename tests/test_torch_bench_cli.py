@@ -6,7 +6,8 @@ stand-in with head_dim 128 and one q head a kv head):
   tpu_llm.runtime.bench_cli's f-strings give for the same args (the JAX
   bench run with its builders, timers and engine stubbed out, so only its
   printing runs; phi-2 and the synthetic MoE at shrunk configs), and the
-  rows waiting for later slices (mamba*, the parallel rows) exit 2;
+  rows waiting for later slices (the parallel rows) exit 2; the Mamba rows
+  print at a shrunk Mamba, their program's tokens the plain loop's;
 - synth_quant_llama / _synth_qtensor / random_llama_params / _build_phi2
   / _build_moe give the JAX package's tree, kinds, shapes and dtypes for every kind and switch (the
   values differ: the RNGs do);
@@ -129,14 +130,59 @@ def test_rows_carry_the_jax_metric_names(family, tiny, monkeypatch, capsys):
                    for r in got)
 
 
-@pytest.mark.parametrize("argv", [["--configs", "mamba_bf16"], ["--configs", "q4_0,mamba"],
-                                  ["--configs", "mamba"], ["--scaling"], ["--sharded"],
-                                  ["--serve-tp", "2"]])
+@pytest.mark.parametrize("argv", [["--scaling"], ["--sharded"], ["--serve-tp", "2"]])
 def test_later_rows_exit_2(argv, capsys):
     capsys.readouterr()
     assert TB.main(argv + ["--device", "cpu"]) == 2
     cap = capsys.readouterr()
     assert cap.out == "" and "ROADMAP.md queue 1, item" in cap.err
+
+
+TINY_MAMBA = dict(d_model=32, n_layers=2, vocab_size=64)
+
+
+@pytest.mark.parametrize("argv", [["--configs", "mamba_bf16"], ["--configs", "q4_0,mamba"],
+                                  ["--configs", "mamba"]])
+def test_mamba_rows_print(argv, tiny, monkeypatch, capsys):
+    """The Mamba rows (exit 2 before the Mamba slice) print the JAX
+    package's metric names, vs_baseline over 6.237, at a shrunk Mamba
+    whose tree (_build_mamba) has the JAX one's keys, shapes and dtypes,
+    cast_weights applied for mamba_bf16; the timed program emits the
+    greedy tokens of a plain decode loop."""
+    import tpu_llm.config as jcfg
+    from tpu_llm.models import mamba as JM
+    from tpu_llm_torch.config import MambaConfig
+    from tpu_llm_torch.models import mamba as TM
+
+    monkeypatch.setattr(TB, "mamba_130m", lambda: MambaConfig(**TINY_MAMBA))
+    monkeypatch.setattr(jcfg, "mamba_130m", lambda: jcfg.MambaConfig(**TINY_MAMBA))
+    argv = argv + ["--steps", "3"]
+    capsys.readouterr()
+    assert TB.main(argv + ["--device", "cpu"]) == 0
+    got = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    jtree, _ = JB._build_mamba()
+    ptree, cfg = TB._build_mamba("cpu")
+    assert _tree(ptree) == _tree(JM.unstack_layers(jtree))
+    monkeypatch.setattr(JB, "_build_mamba", lambda: (jtree, None))
+    monkeypatch.setattr(JB, "_decode_tok_s_mamba", lambda *a, **k: 1.0)
+    want = _jax_rows(argv, monkeypatch, capsys)
+    assert [(r["metric"], r["unit"], sorted(r)) for r in got] == \
+        [(r["metric"], r["unit"], sorted(r)) for r in want]
+    for r in got:
+        assert r["value"] > 0 and np.isfinite(r["value"])
+        if r["metric"].startswith("mamba"):
+            assert abs(r["vs_baseline"] - r["value"] / TB.REFERENCE_MAMBA_TOK_S) <= 0.01
+    from tpu_llm_torch.runtime.engine import ModelAdapter
+
+    if "mamba_bf16" in argv[1]:
+        ptree = TM.cast_weights(ptree)
+    toks = TB._engine_program(ptree, ModelAdapter.mamba(cfg, "cpu"), 1, 16, 0, "cpu")(6)
+    state, tok, want_toks = TM.init_state(cfg, 1), 1, []
+    for _ in range(6):
+        h, _ = TM.forward(ptree, cfg, torch.tensor([[tok]]), state)
+        tok = int(TM.lm_head(ptree, cfg, h).argmax())
+        want_toks.append([tok])
+    assert toks == want_toks
 
 
 # -- weights -----------------------------------------------------------------

@@ -43,11 +43,10 @@ def test_sampled_output_reproducible_per_seed(tmp_path, capfdbinary):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("flag", [["--ak"], ["--lora", "x.gguf"], ["--tp", "2"], ["--dp", "2"]],
-                         ids=["ak", "lora", "tp", "dp"])
+@pytest.mark.parametrize("flag", [["--lora", "x.gguf"], ["--tp", "2"], ["--dp", "2"]],
+                         ids=["lora", "tp", "dp"])
 def test_flags_outside_the_slice_are_refused(flag):
-    """The packed format, LoRA and the parallel flags stay refused
-    (argparse exits 2)."""
+    """LoRA and the parallel flags stay refused (argparse exits 2)."""
     with pytest.raises(SystemExit) as e:
         tcli.build_parser().parse_args(["-m", "x.gguf", *flag])
     assert e.value.code == 2
@@ -56,11 +55,13 @@ def test_flags_outside_the_slice_are_refused(flag):
 @pytest.mark.parametrize("flag,attr,value", [(["--scan"], "scan", True),
                                              (["--spec", "2"], "spec", 2),
                                              (["--cache-dtype", "int8"], "cache_dtype", "int8"),
-                                             (["--profile", "x"], "profile", "x")],
-                         ids=["scan", "spec", "cache-dtype-int8", "profile"])
+                                             (["--profile", "x"], "profile", "x"),
+                                             (["--ak"], "ak", True)],
+                         ids=["scan", "spec", "cache-dtype-int8", "profile", "ak"])
 def test_slice_flags_parse(flag, attr, value):
     """--scan and --spec parse since the --scan slice, --cache-dtype int8
-    and --profile since the dense int8 slice."""
+    and --profile since the dense int8 slice, --ak (the packed format)
+    since the checkpoint-tools slice."""
     args = tcli.build_parser().parse_args(["-m", "x.gguf", *flag])
     assert getattr(args, attr) == value
 

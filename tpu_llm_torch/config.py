@@ -1,5 +1,5 @@
-"""Model configuration (a copy of ``tpu_llm/config.py``'s llama-family
-part: llama, qwen2, gemma, phi-2 and Mixtral-style MoE).
+"""Model configuration (a copy of ``tpu_llm/config.py``: the llama family
+— llama, qwen2, gemma, phi-2 and Mixtral-style MoE — and Mamba).
 
 Every model constant — including the ones the Fortran reference buries as
 literals (rope theta 10000, rms eps 1e-5) — is an explicit field.
@@ -8,6 +8,7 @@ literals (rope theta 10000, rms eps 1e-5) — is an explicit field.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 # RoPE variants (see ops/rope.py):
@@ -118,3 +119,40 @@ def phi2_2_7b() -> LlamaConfig:
                        rope_variant="neox", rope_dims=32, parallel_block=True,
                        use_layernorm=True, use_bias=True, act="gelu",
                        gated_mlp=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    """Mamba SSM config.
+
+    Constants d_conv=4, expand=2, d_state=16 are the reference's hardcoded
+    values (``ssm/mamba.f90:106-108``); d_inner and dt_rank are derived the
+    same way (``ssm/mamba.f90:177-179``).
+    """
+
+    d_model: int = 768
+    n_layers: int = 24
+    vocab_size: int = 50280
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    norm_eps: float = 1e-5          # ssm/mamba.f90:493
+    dt_rank: Optional[int] = None   # default ceil(d_model/16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank_(self) -> int:
+        return self.dt_rank if self.dt_rank is not None else math.ceil(self.d_model / 16)
+
+
+def mamba_130m() -> MambaConfig:
+    """Mamba-130M (HF state-spaces/mamba-130m): d_model 768, 24 layers."""
+    return MambaConfig(d_model=768, n_layers=24, vocab_size=50280)
+
+
+def mamba_790m() -> MambaConfig:
+    """Mamba-790M (HF state-spaces/mamba-790m): d_model 1536, 48 layers."""
+    return MambaConfig(d_model=1536, n_layers=48, vocab_size=50280)

@@ -160,7 +160,7 @@ class _Reader:
 class GGUFFile:
     """Parsed GGUF file with memory-mapped tensor access."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, _shard: bool = False):
         self.path = path
         self._mmap = np.memmap(path, dtype=np.uint8, mode="r")
         buf = memoryview(self._mmap)
@@ -193,17 +193,55 @@ class GGUFFile:
 
         self.alignment = int(self.metadata.get("general.alignment", 32))
         self.data_offset = -(-r.pos // self.alignment) * self.alignment
-        if int(self.metadata.get("split.count", 1) or 1) > 1:
-            raise NotImplementedError(
-                f"{path}: multi-part GGUF is not in this slice of tpu_llm_torch")
+
+        # each tensor's byte source: (mmap, data offset); shards add theirs
+        self._sources: Dict[str, Tuple[Any, int]] = {
+            n: (self._mmap, self.data_offset) for n in self.tensors}
+        n_split = int(self.metadata.get("split.count", 1) or 1)
+        if n_split > 1 and not _shard:
+            self._merge_shards(path, n_split)
+
+    def _merge_shards(self, path: str, n_split: int):
+        """llama.cpp gguf-split checkpoints: opened at shard 00001 of
+        ``<prefix>-NNNNN-of-NNNNN.gguf``, every shard's tensors (and the
+        metadata keys the first lacks) join this file's."""
+        import os
+        import re
+
+        m = re.match(r"^(.*)-(\d{5})-of-(\d{5})\.gguf$", path)
+        if not m:
+            raise ValueError(
+                f"{path}: split.count={n_split} but the filename does not "
+                f"follow the -NNNNN-of-NNNNN.gguf shard convention")
+        prefix, no, total = m.group(1), int(m.group(2)), int(m.group(3))
+        if no != 1:
+            raise ValueError(f"{path}: open shard 00001 (this is {no:05d})")
+        if total != n_split:
+            raise ValueError(
+                f"{path}: filename says {total} shards, split.count says {n_split}")
+        self._shards = []
+        for i in range(2, n_split + 1):
+            sp = f"{prefix}-{i:05d}-of-{n_split:05d}.gguf"
+            if not os.path.exists(sp):
+                raise FileNotFoundError(f"missing GGUF shard {sp}")
+            shard = GGUFFile(sp, _shard=True)
+            self._shards.append(shard)
+            for n, info in shard.tensors.items():
+                if n in self.tensors:
+                    raise ValueError(f"duplicate tensor {n!r} in shard {sp}")
+                self.tensors[n] = info
+                self._sources[n] = (shard._mmap, shard.data_offset)
+            for k, v in shard.metadata.items():
+                self.metadata.setdefault(k, v)
 
     # -- tensor access -------------------------------------------------------
 
     def raw(self, name: str) -> np.ndarray:
         """Raw bytes view of a tensor (no copy)."""
         t = self.tensors[name]
-        start = self.data_offset + t.offset
-        return self._mmap[start : start + t.nbytes]
+        mm, data_offset = self._sources[name]
+        start = data_offset + t.offset
+        return mm[start : start + t.nbytes]
 
     def array(self, name: str) -> np.ndarray:
         """Tensor as a numpy array in its storage dtype (quantized kinds:
@@ -336,7 +374,35 @@ def write_gguf(
             arr, ttype = spec, GGML_F32
         dims = tuple(reversed(np.asarray(arr).shape))
         entries.append((name, dims, ttype, _encode_tensor(np.asarray(arr), ttype)))
+    _write_entries(path, metadata, entries, alignment, version)
 
+
+def write_gguf_split(gguf: "GGUFFile", prefix: str, n_split: int) -> List[str]:
+    """llama.cpp gguf-split's layout: ``gguf``'s tensors, bytes unchanged,
+    in ``n_split`` files ``<prefix>-NNNNN-of-NNNNN.gguf`` (contiguous runs
+    in tensor order); the first shard carries the metadata, every shard
+    ``split.no`` / ``split.count`` / ``split.tensors.count``. Returns the
+    paths, shard 00001 first."""
+    names = list(gguf.tensors)
+    per = -(-len(names) // n_split)
+    paths = []
+    for i in range(n_split):
+        meta = dict(gguf.metadata) if i == 0 else {
+            "general.architecture": gguf.metadata.get("general.architecture", "llama")}
+        meta.update({"split.no": i, "split.count": n_split,
+                     "split.tensors.count": len(names)})
+        entries = [(n, gguf.tensors[n].dims, gguf.tensors[n].ggml_type,
+                    gguf.raw(n).tobytes()) for n in names[i * per:(i + 1) * per]]
+        paths.append(f"{prefix}-{i + 1:05d}-of-{n_split:05d}.gguf")
+        _write_entries(paths[-1], meta, entries, gguf.alignment, gguf.version)
+    return paths
+
+
+def _write_entries(path: str, metadata: Dict[str, Any],
+                   entries: List[Tuple[str, Tuple[int, ...], int, bytes]],
+                   alignment: int, version: int):
+    """The file: header, metadata, tensor infos, then the aligned payloads
+    of ``entries`` (name, ggml dims, ggml type, bytes)."""
     meta = dict(metadata)
     if alignment != 32:
         meta["general.alignment"] = np.uint32(alignment)

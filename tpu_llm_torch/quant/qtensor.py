@@ -269,7 +269,9 @@ def qtensor_from_ggml(ggml_type: int, raw: np.ndarray, rows: int, row_len: int,
 
 def plane_from_numpy(a, device="cpu") -> torch.Tensor:
     """A numpy array (ml_dtypes bf16 included: its bits are carried) as a
-    tensor on ``device``."""
+    tensor on ``device``; a tensor is moved there as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)   # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)

@@ -6,8 +6,11 @@ retires requests between steps.
 Admission runs a DEDICATED PREFILL: the slot's cache rows are zeroed and
 the whole prompt (padded to a power-of-two bucket) goes through one
 forward into the slot's rows, ``cache[:, slot:slot+1]`` (contiguous
-views of the per-layer (B, S, Hkv*D) planes, written in place). Its last
-position's logits give the request's first token.
+views of the per-layer (B, S, Hkv*D) planes, written in place), with
+``length`` the prompt's real length. Its last position's logits give the
+request's first token. A recurrent state (Mamba's per-layer conv and SSM
+rows, ``ModelAdapter.mamba``) takes the same route: zeroed on admission,
+so a reused slot starts clean, and stopped at ``length``.
 
 The decode loop is pipelined one step deep: step i+1 is dispatched from
 the device-side sampled tokens before step i's tokens are read on the
@@ -302,7 +305,7 @@ class BatchEngine:
         """Zero slot ``idx``'s rows and run the prompt (1, Tpad) into them
         at offset 0. Returns the last prompt position's logits (1, V)."""
         sub = _map_state(self.state, lambda a: a.narrow(self._baxis, idx, 1).zero_())
-        hidden, _ = self.adapter.apply(self.params, toks, sub, 0)
+        hidden, _ = self.adapter.apply(self.params, toks, sub, 0, length=last_idx + 1)
         return self.adapter.lm_head(self.params, hidden[:, last_idx:last_idx + 1])[:, 0, :]
 
     def _decode(self, offsets: torch.Tensor) -> torch.Tensor:
@@ -340,13 +343,13 @@ class BatchEngine:
             offsets = offsets + 1
         return torch.stack(toks)
 
-    def _draft_prefill(self, idx: int, toks: torch.Tensor) -> None:
+    def _draft_prefill(self, idx: int, toks: torch.Tensor, last_idx: int) -> None:
         """Zero slot ``idx``'s rows of the draft state and run the prompt
         (1, Tpad) into them at offset 0 (the prefill without its sampling)."""
         dparams, dadapter = self._draft
         ax = dadapter.state_batch_axis
         sub = _map_state(self._draft_state, lambda a: a.narrow(ax, idx, 1).zero_())
-        dadapter.apply(dparams, toks, sub, 0)
+        dadapter.apply(dparams, toks, sub, 0, length=last_idx + 1)
 
     # -- public API -------------------------------------------------------
 
@@ -431,7 +434,7 @@ class BatchEngine:
                 toks = to_device(toks, torch.long, self.device)
                 logits = self._prefill(idx, toks, n_in - 1)
                 if self._draft is not None:
-                    self._draft_prefill(idx, toks)
+                    self._draft_prefill(idx, toks, n_in - 1)
                 self._seat(idx, slot, logits, input_ids)
 
     def _record(self, slot: _Slot, tok: int, lp: Optional[float] = None, top=None):

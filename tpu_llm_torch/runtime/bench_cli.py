@@ -22,9 +22,14 @@ package's metric names. Rows:
   Mixtral-style MoE (dim 1024, 8 experts, top-2, 8 layers), whose batch-1
   decode gathers the 2 selected experts a layer on the device.
 
-The mamba* configs, --scaling, --sharded and --serve-tp need a model
-family and parallelism the port does not have yet: they exit 2 naming
-the ROADMAP.md item they wait for, and print no row.
+- ``mamba`` / ``mamba_bf16``: Mamba-130M greedy decode tokens/s, f32 or
+  with ``cast_weights`` (bf16 projections, embedding and classifier),
+  ``vs_baseline`` over 6.237, the reference's Mamba-130M figure (one CPU
+  core; ssm/README.md).
+
+--scaling, --sharded and --serve-tp need the parallelism the port does
+not have yet: they exit 2 naming the ROADMAP.md item they wait for, and
+print no row.
 
 Weights are random, drawn on the device from a seeded ``torch.Generator``
 (throughput does not depend on their values), packed in the layouts the
@@ -51,13 +56,13 @@ import time
 import numpy as np
 import torch
 
-from tpu_llm_torch.config import llama2_7b, tinyllama_1_1b
+from tpu_llm_torch.config import llama2_7b, mamba_130m, tinyllama_1_1b
 
 REFERENCE_TOK_S = 7.3
+REFERENCE_MAMBA_TOK_S = 6.237      # the reference's Mamba-130M, ssm/README.md
 
 # the ROADMAP.md queue 1 item each refused row waits for
-_LATER = {"mamba": "item 7, other model families (Mamba)",
-          "--scaling": "item 9, parallelism", "--sharded": "item 9, parallelism",
+_LATER = {"--scaling": "item 9, parallelism", "--sharded": "item 9, parallelism",
           "--serve-tp": "item 9, parallelism"}
 
 
@@ -246,6 +251,22 @@ def _build_moe(quant: str = "q4_0", device="cuda", cfg=None):
             "layers": layers}, cfg
 
 
+def _build_mamba(device="cuda"):
+    """Random Mamba-130M weights (the JAX package's ``_build_mamba`` tree:
+    N(0, 0.02) everywhere, norms around 1, A_log = |.| + 0.1) drawn on the
+    device, in the port's per-layer layout."""
+    cfg = mamba_130m()
+    g = _generator(0, device)
+    s = lambda *sh: torch.randn(sh, generator=g, device=device) * 0.02  # noqa: E731
+    E, di, ds, dr, dc = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.dt_rank_, cfg.d_conv
+    layers = [{"norm": s(E) + 1.0, "in_proj": s(E, 2 * di), "conv_w": s(dc, di),
+               "conv_b": s(di), "x_proj": s(di, dr + 2 * ds), "dt_proj": s(dr, di),
+               "dt_bias": s(di), "A_log": s(ds, di).abs() + 0.1, "d": s(di),
+               "out_proj": s(di, E)} for _ in range(cfg.n_layers)]
+    return {"tok_emb": s(cfg.vocab_size, E), "norm_f": s(E) + 1.0,
+            "wcls": s(E, cfg.vocab_size), "layers": layers}, cfg
+
+
 # -- the timed programs ----------------------------------------------------------
 
 def _engine_program(params, adapter, batch: int, max_seq: int, prompt_len: int, device):
@@ -281,6 +302,17 @@ def _decode_tok_s(params, cfg, steps, batch, max_seq, prompt_len, cache_dtype=No
     steps = min(steps, max(1, (max_seq - prompt_len - 1) // 5))
     adapter = ModelAdapter.llama(cfg, cache_dtype or torch.bfloat16, device=device)
     run = _engine_program(params, adapter, batch, max_seq, prompt_len, device)
+    return _slope_tok_s(run, steps, batch)
+
+
+@torch.inference_mode()
+def _decode_tok_s_mamba(params, cfg, steps, batch, device="cuda"):
+    """Greedy Mamba decode tokens/s: the Engine's captured step over the
+    static (batch) state, slope-timed at ``steps`` and 5 * ``steps``."""
+    from tpu_llm_torch.runtime.engine import ModelAdapter
+
+    run = _engine_program(params, ModelAdapter.mamba(cfg, device), batch, 5 * steps + 8, 0,
+                          device)
     return _slope_tok_s(run, steps, batch)
 
 
@@ -434,21 +466,17 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refused(args, names) -> list:
+def _refused(args) -> list:
     """The rows of this run that wait for a later slice, with the item."""
-    out = [(flag, _LATER[flag]) for flag, on in (
+    return [(flag, _LATER[flag]) for flag, on in (
         ("--scaling", args.scaling), ("--sharded", args.sharded),
         ("--serve-tp", args.serve_tp)) if on]
-    for name in names:
-        if name.startswith("mamba"):
-            out.append((name, _LATER["mamba"]))
-    return out
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     names = [n.strip() for n in args.configs.split(",")]
-    refused = _refused(args, names)
+    refused = _refused(args)
     if refused:
         for what, item in refused:
             print(f"llm-bench: {what} is not in this slice of tpu_llm_torch "
@@ -467,6 +495,18 @@ def main(argv=None) -> int:
     cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                    "int8": "int8"}[args.cache_dtype]
     for name in names:
+        if name in ("mamba", "mamba_bf16"):
+            from tpu_llm_torch.models.mamba import cast_weights
+
+            mparams, mcfg = _build_mamba(device)
+            if name == "mamba_bf16":
+                mparams = cast_weights(mparams)
+            tok_s = _decode_tok_s_mamba(mparams, mcfg, args.steps, args.batch, device)
+            del mparams
+            dt = "f32" if name == "mamba" else "bf16"
+            _row(f"mamba_130m_{dt}_decode_tokens_per_s_per_chip", tok_s, "tok/s",
+                 round(tok_s / REFERENCE_MAMBA_TOK_S, 2))
+            continue
         if name.startswith("7b"):
             # 7b | 7b_q4_0 | 7b_q8_0 | 7b_bf16 | 7b_foldnorm (q4_0 without
             # the norm weights: what fold_norms_requant leaves to read)

@@ -2,15 +2,17 @@
 
 The reference flags -m/--model, -p/--prompt, -s/--tokenizer,
 -t/--temperature, -n/--num_tokens (total incl. prompt echo), -v/--verbose,
-plus --dtype f32|bf16|native, --cache-dtype f32|bf16|int8, --seed,
+--ak (the legacy packed format; needs -s tokenizer.bin), plus -m X.npz
+(the weight cache ``llm-load --cache-out`` writes, read with no GGUF
+parsing; -s too), --dtype f32|bf16|native, --cache-dtype f32|bf16|int8, --seed,
 --max-seq, --rope, --fold-norms, --scan (the CUDA-graph decode loop), --spec
 K and --draft GGUF (speculative decoding), the sampling controls --top-k,
 --top-p, --min-p, --repeat-penalty, --frequency-penalty and
 --presence-penalty, --timings (the five-bucket report), --profile DIR (a
 torch.profiler trace of the generation, as a Chrome trace in DIR) and
 --device (cuda unless told otherwise). Any other flag of the JAX
-package's CLI (--ak, --lora, --tp, --dp and the multi-host flags) is
-refused by argparse. Output contract
+package's CLI (--lora, --tp, --dp and the multi-host flags) is refused by
+argparse. Output contract
 (``tpu_llm/runtime/cli.py``): the streamed raw token bytes (with --scan,
 the decoded text at the end instead), then a blank line, the inference
 time, the decode tokens/second and the TTFT, then the timing report, the
@@ -31,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     # no prefix matching: a JAX-CLI flag outside this slice must not pass
     # as an abbreviation of one of these
     p = argparse.ArgumentParser(prog="llm", description=__doc__, allow_abbrev=False)
-    p.add_argument("-m", "--model", default="stories15M.bin", help="GGUF model file")
+    p.add_argument("-m", "--model", default="stories15M.bin",
+                   help="model file (GGUF, a .npz weight cache, or packed 'ak' with --ak)")
     p.add_argument("-p", "--prompt", default="")
     p.add_argument("-s", "--tokenizer", default="",
                    help="external tokenizer.bin (overrides GGUF vocab)")
@@ -39,6 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--num_tokens", type=int, default=256,
                    help="total tokens incl. prompt echo (reference -n)")
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--ak", action="store_true", help="legacy llama2.c packed format")
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16", "native"])
     p.add_argument("--cache-dtype", default="f32", choices=["f32", "bf16", "int8"],
                    help="KV cache storage; int8 = per-(token, head) scaled planes "
@@ -101,14 +105,24 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     t_load = time.perf_counter()
-    gguf = GGUFFile(args.model)
-    params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
+    tokenizer = None
+    if args.model.endswith(".npz"):
+        from tpu_llm_torch.io.weight_cache import load_weight_cache
+
+        params, cfg = load_weight_cache(args.model, device)
+    elif args.ak:
+        from tpu_llm_torch.io.ak import load_ak
+
+        params, cfg = load_ak(args.model, dtype_policy=args.dtype, device=device)
+    else:
+        gguf = GGUFFile(args.model)
+        params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
+        if "tokenizer.ggml.tokens" in gguf.metadata:
+            tokenizer = BPETokenizer.from_gguf(gguf)
     if args.fold_norms:
         from tpu_llm_torch.quant.convert_params import fold_norms_requant
 
         params = fold_norms_requant(params, cfg)
-    tokenizer = (BPETokenizer.from_gguf(gguf)
-                 if "tokenizer.ggml.tokens" in gguf.metadata else None)
     if args.rope != "interleaved" and args.rope != cfg.rope_variant:
         cfg = dataclasses.replace(cfg, rope_variant=args.rope)
     if args.tokenizer:

@@ -1,10 +1,11 @@
 """Generation engine (``tpu_llm/runtime/engine.py::Engine.generate``).
 
 - PREFILL: the whole prompt in one forward, padded to a power-of-two
-  bucket (at least 16). Padding is safe under causal masking: a padded
-  cache slot s is visible only to queries at positions >= s, and the
-  decode step that first reaches position s overwrites the slot before
-  attending to it.
+  bucket (at least 16), with ``length`` the real prompt's. Padding is safe
+  under causal masking: a padded cache slot s is visible only to queries
+  at positions >= s, and the decode step that first reaches position s
+  overwrites the slot before attending to it. A recurrent state (Mamba)
+  would advance through the padding: ``length`` stops it there.
 - DECODE, the step loop: one forward + classifier + sampling per token.
   The sampled id feeds the next step as a device tensor, and the host
   reads token i only after step i+1 is enqueued, so the read does not
@@ -58,8 +59,11 @@ class ModelAdapter:
     """Uniform model interface for the engine. ``ModelAdapter.llama``'s
     ``cache_dtype``: f32, bf16 or "int8" (QuantKV planes).
 
-    apply(params, tokens (B, T), state, offset) -> (hidden (B, T, E), state);
-      offset an int or a (B,) tensor of per-row positions
+    apply(params, tokens (B, T), state, offset, length=None)
+      -> (hidden (B, T, E), state); offset an int or a (B,) tensor of
+      per-row positions; length the valid prefix of a right-padded
+      prompt (a recurrent state must not advance through the padding; a
+      KV cache ignores it)
     lm_head(params, hidden (B, T, E)) -> logits (B, T, V) float32
     init_state(batch, max_seq) -> state
     """
@@ -82,12 +86,29 @@ class ModelAdapter:
         from tpu_llm_torch.models import llama as M
 
         return cls(
-            apply=lambda params, tokens, state, offset: M.forward(
+            apply=lambda params, tokens, state, offset, length=None: M.forward(
                 params, cfg, tokens, state, offset),
             lm_head=lambda params, hidden: M.lm_head(params, cfg, hidden),
             init_state=lambda batch, max_seq: M.init_cache(
                 cfg, batch, max_seq, cache_dtype, device),
             bos_id=bos_id,
+            vocab_size=cfg.vocab_size,
+        )
+
+    @classmethod
+    def mamba(cls, cfg, device="cuda") -> "ModelAdapter":
+        """Mamba (models/mamba.py): per-layer state lists, batch axis 0,
+        written in place; no BOS (ssm/mamba.f90:406); recurrent, so no
+        speculation."""
+        from tpu_llm_torch.models import mamba as M
+
+        return cls(
+            apply=lambda params, tokens, state, offset, length=None: M.forward(
+                params, cfg, tokens, state, length=length),
+            lm_head=lambda params, hidden: M.lm_head(params, cfg, hidden),
+            init_state=lambda batch, max_seq: M.init_state(cfg, batch, device),
+            bos_id=-1,
+            positional_state=False,
             vocab_size=cfg.vocab_size,
         )
 
@@ -143,9 +164,17 @@ class Engine:
         self._graphs: Dict[tuple, dict] = {}
 
     def _prefill(self, tokens: torch.Tensor, last_idx: int, state=None):
+        """The prompt (B, Tpad), real through ``last_idx``, into a fresh
+        state, or into ``state`` (the graph loop's static one; a recurrent
+        state is zeroed first): its last real position's logits."""
         if state is None:
             state = self.adapter.init_state(self.batch, self.max_seq)
-        hidden, state = self.adapter.apply(self.params, tokens, state, 0)
+        elif not self.adapter.positional_state:
+            from tpu_llm_torch.runtime.batching import _map_state
+
+            _map_state(state, lambda a: a.zero_())
+        hidden, state = self.adapter.apply(self.params, tokens, state, 0,
+                                           length=last_idx + 1)
         logits = self.adapter.lm_head(self.params, hidden[:, last_idx:last_idx + 1])
         return logits[:, 0, :], state
 

@@ -253,7 +253,7 @@ class PagedEngine(BatchEngine):
             if self._draft is not None:      # the draft prefills the whole prompt
                 dtoks = np.zeros((1, min(_next_bucket(n_in), self.max_seq)), np.int64)
                 dtoks[0, :n_in] = input_ids
-                self._draft_prefill(idx, to_device(dtoks, torch.long, self.device))
+                self._draft_prefill(idx, to_device(dtoks, torch.long, self.device), n_in - 1)
             if self.prefix is not None:
                 self.prefix.insert(input_ids, bs, blocks, digests=digs)
             self._seat(idx, slot, logits, input_ids)

@@ -9,6 +9,13 @@ slot. ``--paged`` takes the paged KV pool with automatic prefix caching;
 ``--spec K`` verifies up to K drafted tokens a greedy slot a forward
 (prompt lookup, or the ``--draft GGUF`` model's greedy tokens).
 
+``-m`` takes a GGUF, a ``.npz`` weight cache (``llm-load --cache-out``)
+or a Mamba packed checkpoint ``X.bin`` (the reference's ssm format,
+``io/mamba_ckpt.py``), which serves on the dense engine: a recurrent state
+has no KV rows to page and cannot roll back a draft, so --paged and --draft
+are refused for it, as in the JAX package. ``.npz`` and ``.bin`` need -s
+tokenizer.bin.
+
 Flags: -m -p -f -n -t -s, --dtype f32|bf16|native, --cache-dtype
 f32|bf16|int8, --batch, --max-seq, --paged, --block-size, --n-blocks,
 --spec, --draft, --stop-at-eos, --top-k, --top-p, --min-p (each request's
@@ -33,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     # abbreviation of one of these
     p = argparse.ArgumentParser(prog="llm-serve", description=__doc__,
                                 allow_abbrev=False)
-    p.add_argument("-m", "--model", required=True, help="GGUF model file")
+    p.add_argument("-m", "--model", required=True,
+                   help="GGUF, .npz weight cache, or Mamba packed .bin")
     p.add_argument("-p", "--prompt", action="append", default=[],
                    help="prompt text (repeatable)")
     p.add_argument("-f", "--prompts-file", help="file with one prompt per line")
@@ -71,14 +79,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _load(args, device):
-    from tpu_llm_torch.io.gguf import GGUFFile
-    from tpu_llm_torch.models.llama import load_model
     from tpu_llm_torch.tokenizers.bpe import BPETokenizer
 
-    gguf = GGUFFile(args.model)
-    params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
-    tokenizer = (BPETokenizer.from_gguf(gguf)
-                 if "tokenizer.ggml.tokens" in gguf.metadata else None)
+    tokenizer = None
+    if args.model.endswith(".bin"):          # a Mamba packed checkpoint
+        from tpu_llm_torch.io.mamba_ckpt import read_packed
+
+        params, cfg = read_packed(args.model, device)
+    elif args.model.endswith(".npz"):
+        from tpu_llm_torch.io.weight_cache import load_weight_cache
+
+        params, cfg = load_weight_cache(args.model, device)
+    else:
+        from tpu_llm_torch.io.gguf import GGUFFile
+        from tpu_llm_torch.models.llama import load_model
+
+        gguf = GGUFFile(args.model)
+        params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
+        if "tokenizer.ggml.tokens" in gguf.metadata:
+            tokenizer = BPETokenizer.from_gguf(gguf)
     if args.tokenizer:
         tokenizer = BPETokenizer.from_tokenizer_bin(args.tokenizer)
     if tokenizer is None:
@@ -87,9 +106,11 @@ def _load(args, device):
 
 
 def make_engine(args, params, cfg, tokenizer, max_seq, device):
-    """The dense or paged engine from parsed serving flags."""
+    """The dense or paged engine from parsed serving flags (a Mamba model:
+    the dense engine only, SystemExit for --paged and --draft)."""
     import torch
 
+    from tpu_llm_torch.config import MambaConfig
     from tpu_llm_torch.runtime.batching import BatchEngine
     from tpu_llm_torch.runtime.engine import ModelAdapter
 
@@ -98,6 +119,13 @@ def make_engine(args, params, cfg, tokenizer, max_seq, device):
     bos_id = (getattr(tokenizer, "bos_id", 1)
               if getattr(tokenizer, "add_bos", True) else -1)
     eos_id = getattr(tokenizer, "eos_id", 2)
+    if isinstance(cfg, MambaConfig):
+        if args.paged:
+            raise SystemExit("--paged requires a KV-cache model (llama family)")
+        if args.draft:
+            raise SystemExit("--draft requires a llama-family target")
+        return BatchEngine(params, ModelAdapter.mamba(cfg, device), batch=args.batch,
+                           max_seq=max_seq, eos_id=eos_id, speculative_k=args.spec)
     draft = None
     if args.draft:
         from tpu_llm_torch.io.gguf import GGUFFile
@@ -155,7 +183,7 @@ def main(argv=None) -> int:
                  else ""), file=sys.stderr)
         print(f"loaded weights in {time.perf_counter() - t_load:.2f}s", file=sys.stderr)
     prompt_ids = [tokenizer.encode(t) for t in prompts]
-    ctx_cap = cfg.seq_len
+    ctx_cap = getattr(cfg, "seq_len", 4096)     # Mamba: O(1) state, no cap
     # default context: the longest prompt (+BOS) + the budget
     need = max(len(ids) for ids in prompt_ids) + 1 + args.num_tokens
     max_seq = args.max_seq or min(ctx_cap, max(need, 256))
@@ -163,7 +191,11 @@ def main(argv=None) -> int:
         # a 256-multiple keeps long-prompt prefill on the flash kernel's
         # route (S % 256 gate)
         max_seq = min(-(-max_seq // 256) * 256, ctx_cap)
-    engine = make_engine(args, params, cfg, tokenizer, max_seq, device)
+    try:
+        engine = make_engine(args, params, cfg, tokenizer, max_seq, device)
+    except SystemExit as e:
+        print(e, file=sys.stderr)
+        return 1
 
     t0 = time.perf_counter()
     first_tok_s = {}

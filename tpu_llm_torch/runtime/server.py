@@ -190,7 +190,8 @@ class Embedder:
         toks[0, :len(ids)] = ids
         state = self.adapter.init_state(1, pad)
         dev = _first_leaf(state).device
-        hidden, _ = self.adapter.apply(self.params, to_device(toks, torch.long, dev), state, 0)
+        hidden, _ = self.adapter.apply(self.params, to_device(toks, torch.long, dev), state, 0,
+                                       length=len(ids))
         mask = (torch.arange(pad, device=dev) < len(ids))[None, :, None]
         pooled = (hidden.float() * mask).sum(dim=1) / len(ids)
         out = pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
@@ -867,6 +868,7 @@ def main(argv=None) -> int:
     import os
 
     from tpu_llm_torch.runtime.engine import ModelAdapter
+    from tpu_llm_torch.config import MambaConfig
     from tpu_llm_torch.runtime.serve_cli import _load, make_engine
 
     args = build_parser().parse_args(argv)
@@ -879,12 +881,18 @@ def main(argv=None) -> int:
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
-    max_seq = args.max_seq or min(cfg.seq_len, 1024)
+    ctx_cap = getattr(cfg, "seq_len", 4096)     # Mamba: O(1) state, no cap
+    max_seq = args.max_seq or min(ctx_cap, 1024)
     if args.paged and max_seq > 256 and max_seq % 256:
-        max_seq = min(-(-max_seq // 256) * 256, cfg.seq_len)
-    engine = make_engine(args, params, cfg, tokenizer, max_seq, device)
-    embedder = Embedder(params, ModelAdapter.llama(cfg, device=device),
-                        max_len=min(max_seq, 512))
+        max_seq = min(-(-max_seq // 256) * 256, ctx_cap)
+    try:
+        engine = make_engine(args, params, cfg, tokenizer, max_seq, device)
+    except SystemExit as e:
+        print(e, file=sys.stderr)
+        return 1
+    adapter = (ModelAdapter.mamba(cfg, device) if isinstance(cfg, MambaConfig)
+               else ModelAdapter.llama(cfg, device=device))
+    embedder = Embedder(params, adapter, max_len=min(max_seq, 512))
     model_name = args.served_model_name or os.path.basename(args.model)
     httpd, loop = serve(engine, tokenizer, args.host, args.port, max_queue=args.max_queue,
                         max_new_cap=max(1, max_seq - 2), timeout_s=args.timeout,

@@ -1,7 +1,8 @@
 """Greedy score-merge BPE tokenizer (SentencePiece-score style).
 
-A copy of ``tpu_llm/tokenizers/bpe.py`` (GGUF constructor, encode,
-token_bytes, decode, the tokenizer.bin side format). Algorithm: one token
+A copy of ``tpu_llm/tokenizers/bpe.py`` (GGUF constructor, the HF
+tokenizer.json converter, encode, token_bytes, decode, the tokenizer.bin
+side format). Algorithm: one token
 per input byte, then repeatedly merge the adjacent pair whose
 concatenation exists in the vocabulary with the highest SCORE, until no
 merge applies. Token identity is byte content; decode is the raw stored
@@ -266,6 +267,51 @@ class BPETokenizer:
 
         tokens, scores, _ = read_tokenizer_bin(path)
         return cls(tokens, scores, **kw)
+
+    @classmethod
+    def from_hf_tokenizer_json(cls, path: str, **kw) -> "BPETokenizer":
+        """GPT-NeoX/GPT-2-style tokenizer.json -> score-merge form, after the
+        reference converter (``ssm/convert_tokens.py``): score = (#merges) -
+        merge_rank. As in the JAX package, three deliberate deviations:
+        the full GPT-2 byte-unicode table is inverted (the reference maps
+        only 'Ġ' / 'Ċ'); multi-byte vocab entries no merge rule produces
+        are UNMERGEABLE (score -1e30), since merge-rank BPE can never
+        assemble them mid-text; non-special added_tokens (NeoX's
+        multi-space runs) match verbatim before BPE."""
+        import json
+
+        with open(path) as f:
+            tk = json.load(f)
+        vocab: Dict[str, int] = tk["model"]["vocab"]
+        merges = tk["model"].get("merges", [])
+        n = max(vocab.values()) + 1
+        for extra in tk.get("added_tokens", []):
+            n = max(n, extra["id"] + 1)
+        tokens: List[bytes] = [b""] * n
+        scores = np.zeros(n, dtype=np.float32)
+        for tok, tid in vocab.items():
+            tokens[tid] = _gpt2_str_to_bytes(tok)
+        always: Dict[bytes, int] = {}
+        special_ids = set()
+        for extra in tk.get("added_tokens", []):
+            tokens[extra["id"]] = _gpt2_str_to_bytes(extra["content"])
+            if extra.get("special"):
+                special_ids.add(extra["id"])
+            else:
+                always[_gpt2_str_to_bytes(extra["content"])] = extra["id"]
+        top = float(len(merges))
+        merged_ids = set()
+        for rank, merge in enumerate(merges):
+            merged = merge.replace(" ", "", 1) if isinstance(merge, str) else "".join(merge)
+            tid = vocab.get(merged)
+            if tid is not None:
+                merged_ids.add(tid)
+                if scores[tid] == 0.0:
+                    scores[tid] = top - rank
+        for tid, t in enumerate(tokens):
+            if len(t) > 1 and tid not in merged_ids and tid not in special_ids:
+                scores[tid] = UNMERGEABLE
+        return cls(tokens, scores, always_match=always, pretokenizer="gpt2", **kw)
 
     # -- core API ----------------------------------------------------------
 

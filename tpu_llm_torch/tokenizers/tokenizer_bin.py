@@ -1,4 +1,4 @@
-"""tokenizer.bin side-format (a copy of the reader in
+"""tokenizer.bin side-format (a copy of the reader and the writer in
 ``tpu_llm/tokenizers/tokenizer_bin.py``).
 
 Format (verified by the reference readers ``llama2.f90:321-356`` /
@@ -14,7 +14,7 @@ Mamba program deliberately stops 3 short of the nominal 50280,
 from __future__ import annotations
 
 import struct
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -34,3 +34,18 @@ def read_tokenizer_bin(path: str) -> Tuple[List[bytes], np.ndarray, int]:
         pos += tok_len
         scores.append(score)
     return tokens, np.asarray(scores, dtype=np.float32), max_len
+
+
+def write_tokenizer_bin(path: str, tokens: Sequence[bytes], scores: Sequence[float]):
+    max_len = max((len(t) for t in tokens), default=0)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", max_len))
+        for tok, score in zip(tokens, scores):
+            s = float(score)
+            if s <= -1e30:
+                # the UNMERGEABLE sentinel (bpe.UNMERGEABLE) is written as the
+                # reference converter's 0.0 for vocab-only tokens
+                # (ssm/convert_tokens.py)
+                s = 0.0
+            f.write(struct.pack("<fi", s, len(tok)))
+            f.write(tok)
