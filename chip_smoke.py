@@ -206,6 +206,30 @@ Phases, one JSON line each:
    model, card against the plain path on the card (rel 1e-3): f32 and
    q4_0 at window 512, f32 at window 1024 (K4 takes the prefill); then
    dtype_table's f32 / q8_0 / q4_0 / q4_k rows at window 512.
+15. lora_full_width — `llm --lora` over the phase-13 file with a rank-8
+   adapter on all 28 projections and output.weight: the card run's text
+   equals the same merge done on CPU tensors (apply_lora, fused, run by
+   Engine.generate on the card) and differs from the run without it;
+   every greedy token on the plain path's argmax; the merge's seconds.
+16. tp_full_width — TinyLlama-1.1B at full width and depth, Q4_0, as a
+   .npz cache with a tokenizer.bin; two ranks on the one card (gloo,
+   named in the row: a correctness path) launched by
+   tpu_llm_torch.parallel.distributed.launch run `llm --tp 2` over a
+   1200-token prompt (K1 89 a forward, K4 22 on the prefill, K2 22 a
+   decode step: exact counts on each rank, so no step took a plain path),
+   its FFN megakernel switch (K7 over the local w13 / w2), `llm-serve --tp
+   2` (dense b8, --paged bf16 and int8 pools: 16 requests, 8 sharing a
+   prefix), `llm-serve --dp 2` and one `llm-server --tp 2` round of 4
+   concurrent completions; every greedy token on the plain path's argmax
+   over the run's KV dtype; first-token logits with f32 activations within
+   1e-3 * max|logit| of tp 1; `llm` tokens/s at tp 1 and tp 2. Phase
+   multiprocess: the same `llm --tp 2` as two processes started here with
+   --coordinator / --num-processes / --process-id: exit 0, rank 0's text
+   the launched run's, rank 1 silent. The kernels phase adds each kernel
+   at a tp 2 rank's local shapes (check_tp_shapes: the `*_tp2_case` and
+   `tp2_case` entries of the kernels line), and bench_cli the parallel
+   rows (--scaling, --sharded, --serve-tp 2), clamped to the card's one
+   device as the JAX package clamps them.
 Each main-path run starts with every launch count at 0 and reads the
 counts after; a kernel of the path that never launched fails the run.
 
@@ -359,7 +383,8 @@ def check_kernels(torch, timer):
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     cases = {"qmatmul": [], "flash_decode_attention": [], "flash_decode_fused": [],
-             "flash_gqa_attention": [], "ffn_fused": []}
+             "flash_gqa_attention": [], "ffn_fused": [], "paged_flash_decode_attention": [],
+             "paged_flash_decode_q": []}
 
     n_diff = {}
 
@@ -575,31 +600,96 @@ def check_kernels(torch, timer):
            nbytes(qf32) * 2 + 2 * B * T * Hkv * D * kb4.element_size(),
            4.0 * B * H * D * T * (T + 1) / 2, "f32")
     check_serving_shapes(torch, timer, g, compare, record)
-    check_paged_kernels(torch, timer, g, compare, record, cases)
+    check_paged_kernels(torch, timer, g, compare, record)
     check_family_shapes(torch, timer, g, compare, record)
+    check_tp_shapes(torch, timer, g, compare, record)
     return cases
 
 
-def check_serving_shapes(torch, timer, g, compare, record):
+# a TinyLlama rank's projection shards at tp 2 (K, N)
+TP2_SHAPES = {"wqkv_tp2": (2048, 1280), "wo_tp2": (1024, 2048), "w13_tp2": (2048, 5632),
+              "w2_tp2": (2816, 2048), "wcls_tp2": (2048, 16000)}
+
+
+def check_tp_shapes(torch, timer, g, compare, record):
+    """The local shapes one rank of TinyLlama at tp 2 gives the kernels
+    (each case tagged tp=2, its bound from the local bytes): K1 on every
+    projection's shard (q4_0, f32 planes, 1 and 8 rows; library
+    torch._weight_int4pack_mm), K2 and K4 at serving's shapes over 16 q
+    heads and 2 kv heads, K3 over bench.py's bf16 cache with them, K5 / K6
+    at batch 8 over the local pools, K7 over the local w13 / w2."""
+    from tpu_llm_torch.ops import flash_attention as FA
+    from tpu_llm_torch.quant.qmatmul import qmatmul, qmatmul_plain
+
+    F = torch.nn.functional
+    for wname, (K, N) in TP2_SHAPES.items():
+        w = random_qtensor(torch, g, "q4_0", K, N, "f32")
+        for rows in (1, 8):
+            x = torch.randn((rows, K), generator=g, device="cuda").bfloat16()
+            out_dtype = torch.float32 if wname.startswith("wcls") else torch.bfloat16
+            got = qmatmul(x, w, out_dtype=out_dtype)
+            want = qmatmul_plain(x, w, out_dtype=out_dtype)
+            info = dict(weight=wname, kind="q4_0", planes="f32", rows=rows, K=K, N=N,
+                        x="bf16", out=str(out_dtype).replace("torch.", ""), row_scale=False,
+                        tp=2)
+            err, tol = compare("qmatmul", got, want, True, **info)
+            record("qmatmul", info, err, tol,
+                   timer.ms(lambda: qmatmul(x, w, out_dtype=out_dtype)),
+                   timer.ms(lambda: qmatmul_plain(x, w, out_dtype=out_dtype)),
+                   int4pack_ms(torch, timer, x, w, want, info),
+                   w.nbytes + nbytes(x) + rows * N * got.element_size(),
+                   2.0 * rows * K * N, "bf16")
+        del w
+    check_ffn_kernel(torch, timer, g, compare, record, F=5632 // 2, kinds=("q4_0",), tp=2)
+    check_serving_shapes(torch, timer, g, compare, record, heads=(16, 2), tp=2)
+    check_paged_kernels(torch, timer, g, compare, record, heads=(16, 2),
+                        configs=(PAGED_CONFIGS[0], PAGED_CONFIGS[3]), position_sets=(PAGED_POS,),
+                        tp=2)
+    # K3 over bench.py's bf16 (1, 1024, Hkv * 64) cache at its last position
+    B, H, Hkv, D, S, pos = 1, 16, 2, 64, BENCH_MAX_SEQ, BENCH_PROMPT + BENCH_STEPS[1] - 1
+    kc, vc = (torch.randn((B, S, Hkv * D), generator=g, device="cuda").bfloat16()
+              for _ in range(2))
+    q = torch.randn((B, 1, H, D), generator=g, device="cuda").bfloat16()
+    kn, vn = (torch.randn((B, 1, Hkv * D), generator=g, device="cuda").bfloat16()
+              for _ in range(2))
+    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    info = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, pos=pos, q="bf16", cache="bf16", tp=2)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = FA.flash_decode_fused(q, k1, v1, kn, vn, p)[0]
+    err, tol = compare("flash_decode_fused", got,
+                       FA.flash_decode_fused_plain(q, k2, v2, kn, vn, p)[0], True, **info)
+    k4, v4 = (c.view(B, S, Hkv, D)[:, :pos + 1].transpose(1, 2) for c in (kc, vc))
+    record("flash_decode_fused", info, err, tol,
+           timer.ms(lambda: FA.flash_decode_fused(q, k1, v1, kn, vn, p)),
+           timer.ms(lambda: FA.flash_decode_fused_plain(q, k2, v2, kn, vn, p)),
+           timer.ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k4, v4,
+                                                           enable_gqa=True)),
+           nbytes(q) * 2 + 2 * B * pos * Hkv * D * 2 + nbytes(kn, vn) + 2 * Hkv * D * 2,
+           4.0 * B * H * (pos + 1) * D, "f32")
+
+
+def check_serving_shapes(torch, timer, g, compare, record, heads=(32, 4), tp=None):
     """K2 and K4 at the shapes serving gives them, bf16 q over bf16 cache
     planes: K2 as the dense BatchEngine's decode (batch 8, a (8, 1024,
     256) cache, ragged positions PAGED_POS); K4 as PagedEngine's prefill
     over the gathered (1, 1024, 4, 64) view of one slot (a 256-token tail
     after a 256-token prefix hit at offset 256, and a 512-token prompt at
-    offset 0)."""
+    offset 0). ``heads`` (q, kv): a tp rank's local heads with ``tp``."""
     from tpu_llm_torch.ops import flash_attention as FA
 
     F = torch.nn.functional
     dev, bf = "cuda", torch.bfloat16
-    H, Hkv, D, S = 32, 4, 64, 1024
+    (H, Hkv), D, S = heads, 64, 1024
     it = 2
+    tpi = {"tp": tp} if tp else {}
 
     B = len(PAGED_POS)
     pos = torch.tensor(PAGED_POS, dtype=torch.int32, device=dev)
     kc, vc = (torch.randn((B, S, Hkv * D), generator=g, device=dev).to(bf)
               for _ in range(2))
     q = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
-    info = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, positions=PAGED_POS, q="bf16", cache="bf16")
+    info = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, positions=PAGED_POS, q="bf16", cache="bf16",
+                **tpi)
     got = FA.flash_decode_attention(q, kc, vc, pos)
     err, tol = compare("flash_decode_attention", got,
                        FA.flash_decode_attention_plain(q, kc, vc, pos), True, **info)
@@ -618,7 +708,8 @@ def check_serving_shapes(torch, timer, g, compare, record):
               for _ in range(2))
     for T, off in ((256, 256), (512, 0)):
         qp = torch.randn((1, T, H, D), generator=g, device=dev).to(bf)
-        info = dict(B=1, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=off, q="bf16", cache="bf16")
+        info = dict(B=1, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=off, q="bf16", cache="bf16",
+                    **tpi)
         got = FA.flash_gqa_attention(qp, kp, vp, off)
         err, tol = compare("flash_gqa_attention", got,
                            FA.flash_gqa_attention_plain(qp, kp, vp, off), True, **info)
@@ -651,18 +742,19 @@ def enqueue_us(torch, fn, n: int = 20) -> float:
     return host / n * 1e6
 
 
-def check_ffn_kernel(torch, timer, g, compare, record):
-    """K7 at TinyLlama width (E 2048, F 5632), q4_0 and q8_0 with f32
-    planes, 1 and 8 rows: against its twin, and timed beside the unfused
-    path it replaces (K1 on w13, silu * up, K1 on w2, as models/llama.py
-    runs it), on the card and in host enqueue time. No single PyTorch call
-    computes it: library_ms is null."""
+def check_ffn_kernel(torch, timer, g, compare, record, F=5632, kinds=("q4_0", "q8_0"),
+                     tp=None):
+    """K7 at TinyLlama width (E 2048, F 5632; a tp rank's F / tp), q4_0 and
+    q8_0 with f32 planes, 1 and 8 rows: against its twin, and timed beside
+    the unfused path it replaces (K1 on w13, silu * up, K1 on w2, as
+    models/llama.py runs it), on the card and in host enqueue time. No
+    single PyTorch call computes it: library_ms is null."""
     from tpu_llm_torch.ops.activations import silu
     from tpu_llm_torch.quant.ffn import ffn_fused, ffn_fused_plain
     from tpu_llm_torch.quant.qmatmul import qmatmul
 
-    E, F = 2048, 5632
-    for kind in ("q4_0", "q8_0"):
+    E = 2048
+    for kind in kinds:
         w13 = random_qtensor(torch, g, kind, E, 2 * F)
         w2 = random_qtensor(torch, g, kind, F, E)
         for rows in (1, 8):
@@ -673,7 +765,8 @@ def check_ffn_kernel(torch, timer, g, compare, record):
                 return qmatmul(silu(h13[..., :F]) * h13[..., F:], w2)
 
             got = ffn_fused(x, w13, w2)
-            info = dict(kind=kind, rows=rows, E=E, F=F, x="bf16", planes="f32")
+            info = dict(kind=kind, rows=rows, E=E, F=F, x="bf16", planes="f32",
+                        **({"tp": tp} if tp else {}))
             err, tol = compare("ffn_fused", got, ffn_fused_plain(x, w13, w2), True, **info)
             compare("ffn_fused_vs_unfused", unfused(), got, True, **info)
             info["unfused_ms"] = timer.ms(unfused)
@@ -720,7 +813,15 @@ PAGED_POS = [15, 100, 257, 511, 700, 900, 1000, 1023]
 PAGED_BATCH1_POS = [1000]      # one live request
 
 
-def check_paged_kernels(torch, timer, g, compare, record, cases):
+PAGED_CONFIGS = (("paged_flash_decode_attention", "bf16", 16),
+                 ("paged_flash_decode_attention", "bf16", 64),      # llm-bench --paged
+                 ("paged_flash_decode_attention", "f32", 16),
+                 ("paged_flash_decode_q", "int8", 32))
+
+
+def check_paged_kernels(torch, timer, g, compare, record, heads=(32, 4),
+                        configs=PAGED_CONFIGS, position_sets=(PAGED_POS, PAGED_BATCH1_POS),
+                        tp=None):
     """K5 (bf16 and f32 pools, block 16) and K6 (int8 pools, block 32)
     against their plain twins at serving shapes: batch 8, 32/4 heads,
     head_dim 64, max_seq 1024, shuffled tables, positions PAGED_POS; and
@@ -729,7 +830,8 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
     split count and the kernels the profiler sees a call launch (one: the
     split decode body merges in the same launch). Library:
     F.scaled_dot_product_attention over the rows gathered (and, for int8,
-    dequantized) beforehand, masked to s <= pos; the gather is not timed."""
+    dequantized) beforehand, masked to s <= pos; the gather is not timed.
+    ``heads`` (q, kv) and ``configs``: a tp rank's local heads with ``tp``."""
     from tpu_llm_torch.ops import flash_attention as FA
     from tpu_llm_torch.ops.kv_cache import dequantize_kv
     from tpu_llm_torch.ops.paged_kv import (PagedKV, paged_gather, scale_pool_width,
@@ -737,14 +839,8 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
 
     F = torch.nn.functional
     dev = "cuda"
-    H, Hkv, D, max_seq = 32, 4, 64, 1024
-    cases["paged_flash_decode_attention"] = []
-    cases["paged_flash_decode_q"] = []
-    for (name, pool, BS), positions in itertools.product(
-            (("paged_flash_decode_attention", "bf16", 16),
-             ("paged_flash_decode_attention", "bf16", 64),      # llm-bench --paged
-             ("paged_flash_decode_attention", "f32", 16),
-             ("paged_flash_decode_q", "int8", 32)), (PAGED_POS, PAGED_BATCH1_POS)):
+    (H, Hkv), D, max_seq = heads, 64, 1024
+    for (name, pool, BS), positions in itertools.product(configs, position_sets):
         B = len(positions)
         MB = max_seq // BS
         N = 1 + B * MB
@@ -772,7 +868,7 @@ def check_paged_kernels(torch, timer, g, compare, record, cases):
         n_split = FA.decode_splits(B, Hkv, MB * BS)[1]
         info = dict(B=B, H=H, Hkv=Hkv, D=D, BS=BS, MB=MB, pool=pool,
                     q=str(q.dtype).replace("torch.", ""), positions=positions,
-                    n_split=n_split)
+                    n_split=n_split, **({"tp": tp} if tp else {}))
         got = kernel(*args)
         err, tol = compare(name, got, plain(*args), pool != "f32", **info)
         per_call = launches_per_call(torch, lambda: kernel(*args))
@@ -2612,18 +2708,22 @@ def synth_family(torch, cfg, seed: int, kind: str = "q4_0"):
     return params
 
 
-def greedy_vs_plain(torch, label, params, cfg, ids, tokens, tie_rel=2e-2):
+def greedy_vs_plain(torch, label, params, cfg, ids, tokens, tie_rel=2e-2, cache="f32",
+                    gate=True):
     """The greedy tokens of the kernel path held against the plain path on
-    the card: one teacher-forced plain forward over ``ids`` + ``tokens``;
+    the card: one teacher-forced plain forward over ``ids`` + ``tokens``
+    over a ``cache`` ("f32", "bf16" or "int8": the run's KV storage) cache;
     each token must be the plain argmax, or lie within ``tie_rel`` *
     max|logit| of the plain max (a near-tie: the bf16 tolerance of
-    logits_vs_plain). Returns the counts and the smallest top-1 margin of
-    the exact steps."""
+    logits_vs_plain). Returns the counts, and the largest gap below the
+    plain max of a step off the argmax, over max|logit|. ``gate=False``
+    only reports (a reading against another reference than the run's)."""
     from tpu_llm_torch.models import llama as M
 
     seq = torch.tensor([ids + tokens[:-1]], device="cuda")
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": "int8"}[cache]
     with torch.inference_mode(), plain_path():
-        c = M.init_cache(cfg, 1, seq.shape[1], torch.float32, "cuda")
+        c = M.init_cache(cfg, 1, seq.shape[1], dt, "cuda")
         x, _ = M.forward(params, cfg, seq, c, 0)
         logits = M.lm_head(params, cfg, x[:, len(ids) - 1:])[0]
     want = torch.tensor(tokens, device="cuda")
@@ -2632,10 +2732,12 @@ def greedy_vs_plain(torch, label, params, cfg, ids, tokens, tie_rel=2e-2):
     got = logits.gather(1, want[:, None])[:, 0]
     exact = logits.argmax(dim=-1) == want
     ok = bool((exact | (got >= top - tol)).all())
-    row = dict(run=label, steps=len(tokens), exact=int(exact.sum()),
-               near_tie=int((~exact).sum()), all_within_rule=ok)
+    gap = ((top - got) / logits.abs().max(dim=-1).values)[~exact]
+    row = dict(run=label, cache=cache, gate=gate, steps=len(tokens), exact=int(exact.sum()),
+               near_tie=int((~exact).sum()), all_within_rule=ok,
+               worst_gap_rel=float(gap.max()) if gap.numel() else 0.0)
     emit("greedy_vs_plain", **row)
-    if not ok:
+    if gate and not ok:
         fail(f"{label}: greedy tokens off the plain path beyond a near-tie: {row}")
     return row
 
@@ -2842,6 +2944,11 @@ BENCH_CLI_RUNS = [
      ("qmatmul", "flash_decode_attention")),
     # Mamba-130M f32 and bf16: no ported kernel on its path
     (["--configs", "mamba,mamba_bf16", "--steps", "32"], ()),
+    # the parallel rows, clamped to the card's one device as the JAX
+    # package clamps them (dp 1, tp 1, serve-tp 2 -> 1 with its note)
+    (["--scaling", "--steps", "8"], ("flash_decode_attention",)),
+    (["--sharded", "--steps", "8"], ("qmatmul", "flash_decode_attention")),
+    (["--serve-tp", "2", "--steps", "16"], ("flash_decode_attention",)),
 ]
 
 
@@ -2896,6 +3003,9 @@ def bench_cli_full_width(torch):
                                 lambda: run_bench_cli(argv), must, runs, total)
         if not got:
             fail(f"llm-bench {argv} printed no row")
+        for r in [r for r in got if "note" in r]:
+            emit("bench_cli", argv=argv, **r)
+        got = [r for r in got if "note" not in r]
         for r in got:
             if not (isinstance(r["value"], (int, float)) and math.isfinite(r["value"])
                     and r["value"] > 0):
@@ -2915,7 +3025,9 @@ def bench_cli_full_width(torch):
               "phi2_2.7b_q4_0_decode_tokens_per_s_per_chip",
               "synthetic_moe_8e_top2_q4_0_decode_tokens_per_s_per_chip",
               "mamba_130m_f32_decode_tokens_per_s_per_chip",
-              "mamba_130m_bf16_decode_tokens_per_s_per_chip"):
+              "mamba_130m_bf16_decode_tokens_per_s_per_chip",
+              "scaling_dp1_decode_tokens_per_s", "tp1_shardmap_q4_0_decode_tokens_per_s",
+              "tinyllama_1.1b_bf16_engine_serving_tp1_tokens_per_s_b1"):
         if m not in metrics:
             fail(f"llm-bench: row {m} missing")
     lv = llama2_7b_step_vs_plain(torch)
@@ -3402,6 +3514,438 @@ def perplexity_phase(torch, gguf: str):
     return dict(runs=runs, total=total, rows=rows, table=table)
 
 
+# -- phase 15: LoRA at TinyLlama width ------------------------------------------------
+
+LORA_RANK = 8
+
+
+def write_lora_adapter(path: str, n_layers: int, seed: int = 71):
+    """A rank-LORA_RANK adapter GGUF (llama.cpp's convert_lora layout) on
+    every projection of ``n_layers`` TinyLlama-width layers and on
+    output.weight: A, B ~ N(0, 0.02), alpha 16."""
+    import numpy as np
+
+    from tpu_llm_torch.io import gguf as gg
+
+    rng = np.random.default_rng(seed)
+    dim, hidden, kv, vocab = 2048, 5632, 256, 32000
+    shapes = {"attn_q": (dim, dim), "attn_k": (kv, dim), "attn_v": (kv, dim),
+              "attn_output": (dim, dim), "ffn_gate": (hidden, dim), "ffn_up": (hidden, dim),
+              "ffn_down": (dim, hidden)}
+    bases = {f"blk.{i}.{n}.weight": oi for i in range(n_layers) for n, oi in shapes.items()}
+    bases["output.weight"] = (vocab, dim)
+    tensors = {}
+    for base, (out_d, in_d) in bases.items():
+        tensors[base + ".lora_a"] = (rng.standard_normal((LORA_RANK, in_d)) * 0.02
+                                     ).astype(np.float32)
+        tensors[base + ".lora_b"] = (rng.standard_normal((out_d, LORA_RANK)) * 0.02
+                                     ).astype(np.float32)
+    gg.write_gguf(path, {"general.architecture": "llama", "general.type": "adapter",
+                         "adapter.type": "lora", "adapter.lora.alpha": 16.0}, tensors)
+    return len(bases)
+
+
+def to_card(params):
+    """A params tree's tensors and QTensors moved to the card."""
+    from tpu_llm_torch.quant.qtensor import QTensor, qmap
+
+    def mv(v):
+        if v is None:
+            return None
+        return qmap(lambda p: p.cuda(), v) if isinstance(v, QTensor) else v.cuda()
+
+    return {k: [{n: mv(t) for n, t in lp.items()} for lp in v] if k == "layers" else mv(v)
+            for k, v in params.items()}
+
+
+def lora_full_width(torch, tmp: str, gguf: str):
+    """`llm --lora` on the card over phase 13's TinyLlama-width Q4_0 GGUF
+    (4 layers) with a rank-8 adapter on every projection and the
+    classifier: its text is the text of the same merge done on CPU tensors
+    (apply_lora, fused, moved to the card, Engine.generate), differs from
+    the run without the adapter, and every greedy token is on the plain
+    path's argmax; the merge's seconds on the host."""
+    from tpu_llm_torch.io.gguf import GGUFFile
+    from tpu_llm_torch.io.lora import apply_lora
+    from tpu_llm_torch.models.llama import _LAYER_TENSORS, load_gguf
+    from tpu_llm_torch.quant.convert_params import fuse_llama_layers
+    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+    from tpu_llm_torch.tokenizers.bpe import BPETokenizer
+
+    runs, total = {}, {n: 0 for n in counters()}
+    ad = os.path.join(tmp, "lora_r8.gguf")
+    n_pairs = write_lora_adapter(ad, TOOLS_LAYERS)
+    must = ("qmatmul", "flash_decode_attention")
+    t = time.perf_counter()
+    card, _ = tools_cli(torch, "llm_lora", ["-m", gguf, "--lora", ad, *TOOLS_PROMPT,
+                                            "--dtype", "native"], must, runs, total)
+    card_s = time.perf_counter() - t
+    base, _ = tools_cli(torch, "llm_no_lora", ["-m", gguf, *TOOLS_PROMPT, "--dtype", "native"],
+                        must, runs, total)
+    g = GGUFFile(gguf)
+    params, cfg = load_gguf(g, dtype_policy="native", fuse=False, device="cpu")
+    t = time.perf_counter()
+    merged = apply_lora(params, ad)
+    merge_s = time.perf_counter() - t
+    merged = to_card(dict(merged, layers=fuse_llama_layers(
+        merged["layers"], lambda i, k: _LAYER_TENSORS[k].format(i=i))))
+    del params
+    tok = BPETokenizer.from_gguf(g)
+    ids = tok.encode(TOOLS_PROMPT[1])
+    n_total = int(TOOLS_PROMPT[3])
+    eng = Engine(merged, ModelAdapter.llama(cfg, torch.float32, bos_id=tok.bos_id,
+                                            device="cuda"),
+                 max_seq=min(cfg.seq_len, max(n_total + 8, 64)), device="cuda")
+    res = eng.generate(ids, n_total=n_total, temperature=0.0)
+    cpu_line = b"".join(tok.token_bytes(t) for t in res.tokens).split(b"\n")[0]
+    gvp = greedy_vs_plain(torch, "lora_full_width", merged, cfg, [tok.bos_id] + ids,
+                          res.tokens[len(ids):])
+    row = dict(dim=2048, layers=TOOLS_LAYERS, kind="q4_0", lora_rank=LORA_RANK,
+               lora_pairs=n_pairs, merge_s=merge_s, llm_lora_s=card_s,
+               card_equals_cpu_merge=card == cpu_line, lora_changes_text=card != base,
+               text=card.decode(errors="replace")[:80], greedy_vs_plain=gvp,
+               launches={k: {n: v for n, v in c.items() if v} for k, c in runs.items()})
+    emit("lora_full_width", **row)
+    if not (row["card_equals_cpu_merge"] and row["lora_changes_text"]):
+        fail(f"llm --lora: {row}")
+    del merged, eng
+    torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, row=row)
+
+
+# -- phase 16: tensor and data parallelism on the card -------------------------------
+
+TP_PROMPT_LEN = 1200   # at 16 local heads the prefill's scores pass 64 MB: K4
+TP_NEW = 40            # greedy tokens of the `llm --tp 2` run
+TP_SERVE_NEW = 24      # tokens a request of the serving runs
+TP_K7_PROMPT = "abc def"   # the `llm --tp 2` run with the FFN megakernel on
+TP_SERVE_RUNS = {      # llm-serve flags -> the kernels every rank must launch, the KV storage
+    "serve_tp2_dense_b8": (["--batch", "8", "--tp", "2"], ("qmatmul", "flash_decode_attention"),
+                           "bf16"),
+    "serve_tp2_paged_bf16": (["--batch", "8", "--tp", "2", "--paged"],
+                             ("qmatmul", "paged_flash_decode_attention"), "bf16"),
+    "serve_tp2_paged_int8": (["--batch", "8", "--tp", "2", "--paged", "--cache-dtype", "int8"],
+                             ("qmatmul", "paged_flash_decode_q"), "int8"),
+    "serve_dp2_dense_b8": (["--batch", "8", "--dp", "2"], ("qmatmul", "flash_decode_attention"),
+                           "bf16"),
+}
+
+
+def tp_long_prompt() -> str:
+    n = len(SERVER_CHARS)
+    return "".join(SERVER_CHARS[(7 * i + i // n) % n] for i in range(TP_PROMPT_LEN))
+
+
+def tp_llm_argv(npz: str, tok: str):
+    return ["-m", npz, "-s", tok, "-p", tp_long_prompt(), "-n", str(TP_PROMPT_LEN + TP_NEW),
+            "--tp", "2", "--device", "cuda"]
+
+
+def tp_rank(rank: int, npz: str, tok: str, prompts_file: str, server_prompts_: list):
+    """One of the two ranks of phase 16 (run by
+    tpu_llm_torch.parallel.distributed.launch, gloo on the one card): the
+    entry points' runs, this rank's counts set to 0 before and read after
+    each, the generated tokens recorded (Engine.generate's result, the
+    requests the engines took); then the first-token logits of the TP
+    adapter with f32 activations."""
+    import threading
+
+    import torch
+
+    from tpu_llm_torch.io.weight_cache import load_weight_cache
+    from tpu_llm_torch.parallel.mesh import make_mesh
+    from tpu_llm_torch.parallel.serving import make_tp_llama_adapter, shard_llama_params
+    from tpu_llm_torch.runtime import batching, cli, engine, serve_cli, server
+    from tpu_llm_torch.tokenizers.bpe import BPETokenizer
+
+    gens, subs = [], []
+    gen0, sub0 = engine.Engine.generate, batching.BatchEngine.submit
+
+    def generate(self, *a, **k):
+        res = gen0(self, *a, **k)
+        gens.append(list(res.tokens))
+        return res
+
+    def submit(self, req):
+        subs.append(req)
+        return sub0(self, req)
+
+    engine.Engine.generate, batching.BatchEngine.submit = generate, submit
+    out = {}
+
+    def run(name, fn):
+        subs.clear()
+        reset_counts()
+        t = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(value=value, s=time.perf_counter() - t, counts=read_counts(),
+                         requests=[(list(r.prompt), list(r.tokens)) for r in subs])
+
+    last = {}
+
+    def quiet(main, argv):
+        buf = io.BytesIO()
+        text = io.TextIOWrapper(buf, encoding="utf-8", write_through=True)
+        with contextlib.redirect_stdout(text), contextlib.redirect_stderr(io.StringIO()):
+            rc = main(argv)
+        last["stdout"] = buf.getvalue()
+        return rc
+
+    run("llm_tp2", lambda: quiet(cli.main, tp_llm_argv(npz, tok)))
+    out["llm_tp2"].update(tokens=gens[-1], report=cli_report(last["stdout"]))
+    with switch("TPU_LLM_FFN_MEGAKERNEL"):
+        run("llm_tp2_megakernel", lambda: quiet(cli.main, [
+            "-m", npz, "-s", tok, "-p", TP_K7_PROMPT, "-n", "24", "--tp", "2",
+            "--device", "cuda"]))
+    out["llm_tp2_megakernel"].update(tokens=gens[-1])
+    for name, (flags, _, _) in TP_SERVE_RUNS.items():
+        run(name, lambda: quiet(serve_cli.main, [
+            "-m", npz, "-s", tok, "-f", prompts_file, "-n", str(TP_SERVE_NEW),
+            "--device", "cuda", *flags]))
+
+    def http_round():
+        """llm-server's pieces as its main() puts them together: the first
+        rank serves HTTP and broadcasts each step's plan, the other follows."""
+        args = server.build_parser().parse_args(["-m", npz, "-s", tok, "--batch", "4",
+                                                 "--tp", "2", "--device", "cuda"])
+        mesh = make_mesh(1, 2, device="cuda")
+        params, cfg, tokenizer = serve_cli._load(args, "cpu")
+        eng = serve_cli.make_engine(args, params, cfg, tokenizer, 1024, mesh.device, mesh)
+        emb = server.Embedder(eng.params, make_tp_llama_adapter(cfg, mesh), max_len=512)
+        if mesh.index != 0:
+            server.follow(eng, mesh, emb)
+            return None
+        httpd, loop = server.serve(eng, tokenizer, "127.0.0.1", 0, embedder=emb, mesh=mesh,
+                                   max_new_cap=1000)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            resps, wall = concurrent_completions(httpd.server_address[1], server_prompts_,
+                                                 TP_SERVE_NEW)
+        finally:
+            httpd.shutdown()
+            loop.shutdown()
+        return [r["tokens"] for r in resps], wall
+
+    run("server_tp2", http_round)
+
+    # first-token logits at tp 2 with f32 activations (the embedding in f32)
+    params, cfg = load_weight_cache(npz, "cpu")
+    params["tok_emb"] = params["tok_emb"].float()
+    mesh = make_mesh(1, 2, device="cuda")
+    sh = shard_llama_params(params, cfg, mesh)
+    del params
+    adapter = make_tp_llama_adapter(cfg, mesh)
+    ids = torch.tensor([[1] + BPETokenizer.from_tokenizer_bin(tok).encode("abc def ghi")],
+                       device=mesh.device)
+    with torch.inference_mode():
+        hidden, _ = adapter.apply(sh, ids, adapter.init_state(1, 64), 0)
+        out["first_logits"] = adapter.lm_head(sh, hidden[:, -1:])[0, 0].cpu().numpy()
+    out["backend"] = mesh.describe()
+    return out
+
+
+def serve_cli_requests(argv):
+    """The port's serve CLI in-process, quiet: the (prompt, tokens) of
+    every request its BatchEngine took."""
+    from tpu_llm_torch.runtime import batching, serve_cli
+
+    subs, sub0 = [], batching.BatchEngine.submit
+
+    def submit(self, req):
+        subs.append(req)
+        return sub0(self, req)
+
+    batching.BatchEngine.submit = submit
+    try:
+        run_serve_cli(argv)
+    finally:
+        batching.BatchEngine.submit = sub0
+    return [(list(r.prompt), list(r.tokens)) for r in subs]
+
+
+def greedy_summary(v) -> dict:
+    """One greedy_vs_plain row, or the sum over a run's requests."""
+    v = [v] if isinstance(v, dict) else v
+    return dict(runs=len(v), exact=sum(x["exact"] for x in v),
+                near_tie=sum(x["near_tie"] for x in v),
+                all_within_rule=all(x["all_within_rule"] for x in v),
+                worst_gap_rel=max(x["worst_gap_rel"] for x in v))
+
+
+def cli_report(stdout: bytes) -> dict:
+    """The `llm` CLI's report lines: decode tokens/s and TTFT ms."""
+    import re
+
+    text = stdout.decode(errors="replace")
+    tok = re.search(r"([0-9.]+) tokens/second", text)
+    ttft = re.search(r"TTFT:\s+([0-9.]+) ms", text)
+    return dict(tokens_per_s=tok and float(tok.group(1)), ttft_ms=ttft and float(ttft.group(1)))
+
+
+def tp_full_width(torch, tmp: str):
+    """TinyLlama-1.1B at full width and depth, Q4_0 (synth_tinyllama), as a
+    .npz weight cache with a tokenizer.bin; two ranks on the one card
+    (gloo, printed) run `llm --tp 2` (a 1200-token prompt: K1, K4, K2), its
+    FFN megakernel switch (K7 with w13 / w2 local), `llm-serve --tp 2`
+    (dense b8, --paged bf16 and int8 pools: 16 requests, 8 sharing a
+    prefix), `llm-serve --dp 2` and one `llm-server --tp 2` round of 4
+    concurrent completions. Each rank's counts show the run's kernels (the
+    llm run's exactly: K1 89 a forward, K2 22 a decode step, K4 22 a
+    prefill: no step took a plain path); every greedy token (the K7 run's
+    too, and the dense b8 run's at tp 1 on the same requests, its
+    baseline) is on the plain path's argmax (teacher-forced, unsharded,
+    on the card, over the run's KV dtype); the
+    first-token logits with f32 activations within 1e-3 * max|logit| of
+    tp 1. Then phase `multiprocess`: the same `llm --tp 2` as two
+    processes the smoke starts itself with --coordinator / --num-processes
+    / --process-id, its text the launched run's."""
+    from tpu_llm_torch.config import tinyllama_1_1b
+    from tpu_llm_torch.io.weight_cache import save_weight_cache
+    from tpu_llm_torch.parallel.distributed import free_port, launch
+    from tpu_llm_torch.tokenizers.tokenizer_bin import write_tokenizer_bin
+
+    cfg = tinyllama_1_1b()
+    params = synth_tinyllama(torch, cfg, seed=81)
+    npz, tok, pf = (os.path.join(tmp, n) for n in ("tp.npz", "tp_tok.bin", "tp_prompts.txt"))
+    t = time.perf_counter()
+    save_weight_cache(npz, params, cfg)
+    stok = server_tokenizer(torch, cfg.vocab_size)
+    write_tokenizer_bin(tok, stok.tokens, [0.0] * cfg.vocab_size)
+    prompts = server_prompts(cfg)
+    with open(pf, "w") as fh:
+        fh.write("\n".join(prompts) + "\n")
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    try:
+        ranks = launch(tp_rank, 2, npz, tok, pf, prompts[:4], device="cuda", timeout=900)
+    except RuntimeError as e:
+        fail(f"tp_full_width: {e}")
+    launch_s = time.perf_counter() - t
+    runs, total = {}, {n: 0 for n in counters()}
+    must = {"llm_tp2": ("qmatmul", "flash_gqa_attention", "flash_decode_attention"),
+            "llm_tp2_megakernel": ("qmatmul", "ffn_fused", "flash_decode_attention"),
+            "server_tp2": ("qmatmul", "flash_decode_attention"),
+            **{k: m for k, (_, m, _) in TP_SERVE_RUNS.items()}}
+    for name, kernels in must.items():
+        for r, res in enumerate(ranks):
+            c = res[name]["counts"]
+            if name != "server_tp2" and res[name]["value"] != 0:
+                fail(f"{name} rank {r} exited {res[name]['value']}")
+            for k in kernels:
+                if c[k] <= 0:
+                    fail(f"main path {name} rank {r}: kernel {k} was never launched ({c})")
+            for k, v in c.items():
+                total[k] += v
+            runs[f"{name}_rank{r}"] = c
+    argv1 = tp_llm_argv(npz, tok)
+    i = argv1.index("--tp")
+    del argv1[i:i + 2]
+    tp1_out, _ = drive_run(torch, "llm_tp1", lambda: run_cli(argv1),
+                           ("qmatmul", "flash_gqa_attention", "flash_decode_attention"), runs,
+                           total)
+    # the dense b8 serving run at tp 1 on the same requests: the baseline
+    # that the tp 2 run's greedy tokens are read beside
+    t = time.perf_counter()
+    tp1_reqs, _ = drive_run(torch, "serve_tp1_dense_b8", lambda: serve_cli_requests(
+        ["-m", npz, "-s", tok, "-f", pf, "-n", str(TP_SERVE_NEW), "--device", "cuda",
+         "--batch", "8"]), ("qmatmul", "flash_decode_attention"), runs, total)
+    serve_tp1_s = time.perf_counter() - t
+    steps = TP_NEW - 1
+    want = dict(qmatmul=89 * (1 + steps), flash_decode_attention=22 * steps,
+                flash_gqa_attention=22)
+    for r, res in enumerate(ranks):
+        c = res["llm_tp2"]["counts"]
+        if any(c[k] != v for k, v in want.items()):
+            fail(f"llm --tp 2 rank {r}: launches {c}, want {want} (a step off the kernels)")
+    r0 = ranks[0]
+    ids = [1] + stok.encode(tp_long_prompt())
+    gv = {"llm_tp2": greedy_vs_plain(torch, "llm_tp2", params, cfg, ids,
+                                     r0["llm_tp2"]["tokens"][len(ids) - 1:])}
+    k7_ids = [1] + stok.encode(TP_K7_PROMPT)
+    gv["llm_tp2_megakernel"] = greedy_vs_plain(
+        torch, "llm_tp2_megakernel", params, cfg, k7_ids,
+        r0["llm_tp2_megakernel"]["tokens"][len(k7_ids) - 1:])
+    serve_reqs = {"serve_tp1_dense_b8": tp1_reqs,
+                  **{name: r0[name]["requests"] for name in TP_SERVE_RUNS}}
+    serve_cache = {"serve_tp1_dense_b8": "bf16",
+                   **{name: c for name, (_, _, c) in TP_SERVE_RUNS.items()}}
+    for name, reqs in serve_reqs.items():
+        if len(reqs) != 16 or any(len(t) != TP_SERVE_NEW for _, t in reqs):
+            fail(f"{name}: {[len(t) for _, t in reqs]} tokens, want 16 x {TP_SERVE_NEW}")
+        gv[name] = [greedy_vs_plain(torch, f"{name}[{i}]", params, cfg, [1] + p, t,
+                                    cache=serve_cache[name])
+                    for i, (p, t) in enumerate(reqs)]
+    # the dense runs at tp 1 and tp 2 also read against an f32-cache plain
+    # path (not a gate: their KV is bf16), to tell a reference's rounding
+    # from the tp path's
+    f32_ref = {name: [greedy_vs_plain(torch, f"{name}[{i}]_f32_ref", params, cfg, [1] + p, t,
+                                      gate=False)
+                      for i, (p, t) in enumerate(serve_reqs[name])]
+               for name in ("serve_tp1_dense_b8", "serve_tp2_dense_b8")}
+    http_tokens, http_wall = r0["server_tp2"]["value"]
+    gv["server_tp2"] = [greedy_vs_plain(torch, f"server_tp2[{i}]", params, cfg,
+                                        [1] + stok.encode(p), t, cache="bf16")
+                        for i, (p, t) in enumerate(zip(prompts[:4], http_tokens))]
+    # first-token logits: tp 2 against tp 1 (the unsharded kernel path), f32 activations
+    ids_s = torch.tensor([[1] + stok.encode("abc def ghi")], device="cuda")
+    p32 = dict(params, tok_emb=params["tok_emb"].float())
+    with torch.inference_mode():
+        tp1 = first_logits_fn(torch, p32, cfg, ids_s, 64)().cpu().numpy()
+    import numpy as np
+
+    err = float(np.abs(r0["first_logits"] - tp1).max())
+    tol = 1e-3 * float(np.abs(tp1).max())
+    row = dict(model="tinyllama_1.1b", kind="q4_0", layers=cfg.n_layers, ranks=2,
+               backend=r0["backend"], write_s=write_s, launch_s=launch_s,
+               run_s={k: [res[k]["s"] for res in ranks] for k in must},
+               first_logits_max_abs_err=err, first_logits_tol=tol,
+               top1_tp2=int(r0["first_logits"].argmax()), top1_tp1=int(tp1.argmax()),
+               greedy={k: greedy_summary(v) for k, v in gv.items()},
+               greedy_f32_ref={k: greedy_summary(v) for k, v in f32_ref.items()},
+               server_wall_s=http_wall, llm_tp2=r0["llm_tp2"]["report"],
+               llm_tp1=cli_report(tp1_out),
+               tokens_per_s={"serve_tp1_dense_b8": 16 * TP_SERVE_NEW / serve_tp1_s,
+                             **{k: 16 * TP_SERVE_NEW / ranks[0][k]["s"] for k in TP_SERVE_RUNS}},
+               launches={k: {n: v for n, v in c.items() if v} for k, c in runs.items()})
+    emit("tp_full_width", **row)
+    if not err <= tol or row["top1_tp2"] != row["top1_tp1"]:
+        fail(f"tp 2 first-token logits against tp 1: {err} > {tol} or top-1 differs")
+
+    # phase multiprocess: the same llm --tp 2 as two processes started here
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "tpu_llm_torch.runtime.cli",
+                               *tp_llm_argv(npz, tok), "--coordinator", f"localhost:{port}",
+                               "--num-processes", "2", "--process-id", str(i), "-v"],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE)
+             for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    mp_s = time.perf_counter() - t
+    rcs = [p.returncode for p in procs]
+    first = outs[0][0].split(b"\n")[0]
+    tp_text = b"".join(stok.token_bytes(t) for t in r0["llm_tp2"]["tokens"][len(ids) - 1:])
+    mrow = dict(rcs=rcs, s=mp_s, rank1_stdout_bytes=len(outs[1][0]),
+                mesh=[ln for ln in outs[0][1].decode(errors="replace").splitlines()
+                      if ln.startswith("mesh:")],
+                equals_launched_run=first.endswith(tp_text.split(b"\n")[0]))
+    emit("multiprocess", **mrow)
+    if rcs != [0, 0] or not mrow["equals_launched_run"] or mrow["rank1_stdout_bytes"]:
+        fail(f"multiprocess llm --tp 2: {mrow} {outs[0][1][-2000:]!r} {outs[1][1][-2000:]!r}")
+    del params, p32
+    torch.cuda.empty_cache()
+    return dict(runs=runs, total=total, row=row, multiprocess=mrow)
+
+
 # -- main --------------------------------------------------------------------------
 
 # the case the `llm` CLI runs (bf16 q over its f32 cache), reported beside
@@ -3432,6 +3976,15 @@ EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q=
                                                 "bs64_case": dict(pool="bf16", BS=64, B=8),
                                                 "phi2_d80_case": dict(D=80)},
                "paged_flash_decode_q": {"batch1_case": dict(pool="int8", B=1)}}
+# the local shapes of a TinyLlama rank at tp 2 (check_tp_shapes)
+for _name, _pick in (("flash_decode_attention", dict(tp=2, B=8)),
+                     ("flash_decode_fused", dict(tp=2)),
+                     ("flash_gqa_attention", dict(tp=2, T=512)),
+                     ("paged_flash_decode_attention", dict(tp=2)),
+                     ("paged_flash_decode_q", dict(tp=2)),
+                     ("ffn_fused", dict(tp=2, rows=1))):
+    EXTRA_CASES.setdefault(_name, {})["tp2_case"] = _pick
+EXTRA_CASES["qmatmul"].update({f"{n}_case": dict(weight=n, rows=1) for n in TP2_SHAPES})
 
 # what the paged cases report of their launch: splits, kernels a call
 SPLIT_KEYS = ("n_split", "launches_per_call")
@@ -3504,8 +4057,10 @@ def main() -> int:
         mc = mamba_cli_phase(torch, tmp, mf["paths"]["mamba_130m"])
         ct = checkpoint_tools(torch, tmp)
         pp = perplexity_phase(torch, ct["gguf"])
+        lo = lora_full_width(torch, tmp, ct["gguf"])
+        tpf = tp_full_width(torch, tmp)
     bc = bench_cli_full_width(torch)
-    phases = (fw, sc, sv, hs, mk, f32, kq, fam, mf, mc, ct, pp, bc)
+    phases = (fw, sc, sv, hs, mk, f32, kq, fam, mf, mc, ct, pp, lo, tpf, bc)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     def case(name, pick):
@@ -3532,6 +4087,7 @@ def main() -> int:
                 for c in cases[name] if c["weight"] == "w13" and c["rows"] == 1}
         if name == "ffn_fused":
             out[-1]["unfused_ms"] = rep["unfused_ms"]
+            out[-1]["tp2_unfused_ms"] = case(name, dict(tp=2, rows=1))["unfused_ms"]
         out[-1].update({k: rep[k] for k in SPLIT_KEYS if k in rep})
         extra = dict(EXTRA_CASES.get(name, {}))
         if name in CLI_CASES:

@@ -8,6 +8,7 @@ same seed (the two packages' random streams differ by design)."""
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tests.test_torch_llama import jax_params, to_numpy
 from tpu_llm.config import LlamaConfig as JConfig

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tpu_llm import config as jconfig
 from tpu_llm.runtime import bench_cli as JB
@@ -130,12 +131,38 @@ def test_rows_carry_the_jax_metric_names(family, tiny, monkeypatch, capsys):
                    for r in got)
 
 
-@pytest.mark.parametrize("argv", [["--scaling"], ["--sharded"], ["--serve-tp", "2"]])
-def test_later_rows_exit_2(argv, capsys):
-    capsys.readouterr()
-    assert TB.main(argv + ["--device", "cpu"]) == 2
-    cap = capsys.readouterr()
-    assert cap.out == "" and "ROADMAP.md queue 1, item" in cap.err
+@pytest.mark.parametrize("argv", [["--scaling"], ["--sharded"], ["--serve-tp", "2"],
+                                  ["--serve-tp", "4"]])
+def test_later_rows_exit_2(argv, tiny, monkeypatch, capfd):
+    """The parallel rows, which exited 2 before the parallel slice, print
+    the JAX package's metric names for the same number of devices: two
+    gloo ranks on the CPU (two devices stood in, spawned by llm-bench)
+    against the JAX rows over two of its virtual devices (its builders,
+    timers, engine and shard_engine stubbed); --serve-tp 4 adds the clamp
+    note."""
+    import sys
+
+    import jax
+    import tpu_llm.parallel.serving as jserving
+    from tpu_llm_torch.parallel import mesh as TMesh
+
+    argv = argv + ["--steps", "3", "--max-seq", "128"]
+    if argv[1] == "4":        # TinyLlama's 4 kv heads, as the JAX note names them
+        monkeypatch.setattr(TB, "tinyllama_1_1b", lambda: LlamaConfig(**dict(TINY,
+                                                                             n_kv_heads=4)))
+    monkeypatch.setattr(TMesh, "device_count", lambda device_type: 2)
+    capfd.readouterr()
+    assert TB.main(argv + ["--device", "cpu"]) == 0
+    got = [json.loads(ln) for ln in capfd.readouterr().out.splitlines()]   # rank 0's fd 1
+    devices = jax.devices()[:2]
+    monkeypatch.setattr(jax, "devices", lambda *a: devices)
+    monkeypatch.setattr(jserving, "shard_engine", lambda eng, cfg, mesh: eng)
+    monkeypatch.setitem(sys.modules, "__graft_entry__", types.SimpleNamespace(
+        entry=lambda: (None, ({}, None, None, None))))
+    want = _jax_rows(argv, monkeypatch, capfd)
+    assert [(r.get("metric"), r.get("unit"), r.get("note"), sorted(r)) for r in got] == \
+        [(r.get("metric"), r.get("unit"), r.get("note"), sorted(r)) for r in want]
+    assert all(r["value"] > 0 and np.isfinite(r["value"]) for r in got if "value" in r)
 
 
 TINY_MAMBA = dict(d_model=32, n_layers=2, vocab_size=64)

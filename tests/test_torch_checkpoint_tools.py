@@ -24,6 +24,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tests.make_tiny_gguf import build
 from tpu_llm.runtime import cli as jcli

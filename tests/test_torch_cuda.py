@@ -18,6 +18,7 @@ outputs near the max, plus rounding of intermediates)."""
 
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tpu_llm_torch.ops import flash_attention as FA
 from tpu_llm_torch.quant.qmatmul import qmatmul, qmatmul_plain

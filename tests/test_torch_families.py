@@ -21,6 +21,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tests.make_tiny_gguf import build_moe
 from tpu_llm import config as jconfig

@@ -9,6 +9,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tpu_llm.ops import attention as jatt
 from tpu_llm.ops import flash_attention as jfa

@@ -9,6 +9,8 @@ import subprocess
 import sys
 
 import pytest
+import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_llm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -9,6 +9,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tests.make_tiny_gguf import build as build_tiny_gguf
 from tpu_llm.config import LlamaConfig as JConfig

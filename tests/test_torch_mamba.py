@@ -28,6 +28,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 import jax
 import jax.numpy as jnp

@@ -7,6 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tpu_llm.ops import activations as jact
 from tpu_llm.ops import norms as jnorms

@@ -18,6 +18,8 @@ from tpu_llm_torch.config import LlamaConfig as TConfig
 from tpu_llm_torch.models.llama import params_from_numpy
 from tpu_llm_torch.runtime import batching as TB
 from tpu_llm_torch.runtime.paged_engine import PagedEngine as TPaged
+import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tpu_llm.io import gguf as jgg
 from tpu_llm.quant import blocks as jblocks

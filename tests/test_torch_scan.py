@@ -13,6 +13,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 from tests.test_llama import CFG as JCFG
 from tests.test_llama import make_weights, to_params

@@ -2,8 +2,8 @@
 tiny GGUF on the CPU against tpu_llm.runtime.serve_cli with the same
 flags: per-request completions and token counts identical, the summary
 with the same keys (dense, paged, int8 dense planes and pools, --spec,
---spec --paged, --spec --draft, the sampling filters); flags outside the
-slice refused."""
+--spec --paged, --spec --draft, the sampling filters); --lora, --tp and
+--dp parse, a flag the JAX front end lacks is refused."""
 
 import json
 
@@ -12,6 +12,8 @@ import pytest
 from tests.make_tiny_gguf import build
 from tpu_llm.runtime import serve_cli as jcli
 from tpu_llm_torch.runtime import serve_cli as tcli
+import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 
 def _run(main, argv, capsys):
@@ -67,8 +69,13 @@ def test_prompts_file_and_stop_at_eos(tiny, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--lora", "x"], ["--tp", "2"], ["--dp", "2"]])
 def test_flags_outside_the_slice_are_refused(flag):
+    """LoRA and the parallel flags parse since the parallel slice (they
+    were refused before it); a flag the JAX front end does not have is
+    still refused (argparse exits 2)."""
+    args = tcli.build_parser().parse_args(["-m", "x.gguf", "-p", "a"] + flag)
+    assert getattr(args, flag[0][2:]) == (flag[1] if flag[0] == "--lora" else int(flag[1]))
     with pytest.raises(SystemExit) as e:
-        tcli.build_parser().parse_args(["-m", "x.gguf", "-p", "a"] + flag)
+        tcli.build_parser().parse_args(["-m", "x.gguf", "-p", "a", flag[0] + "-x", flag[1]])
     assert e.value.code == 2
 
 

@@ -19,6 +19,8 @@ import pytest
 from tests.make_tiny_gguf import build
 from tpu_llm.runtime import server as JS
 from tpu_llm_torch.runtime import server as TS
+import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 IGNORED = {"id", "created", "ttft_s"}
 LP_TOL, EMB_TOL = 1e-4, 1e-5
@@ -514,6 +516,11 @@ def test_missing_card_exits_1(servers, capsys):
 
 @pytest.mark.parametrize("flag", [["--lora", "x"], ["--tp", "2"], ["--dp", "2"]])
 def test_flags_outside_the_slice_are_refused(flag):
+    """LoRA and the parallel flags parse since the parallel slice (they
+    were refused before it); a flag the JAX front end does not have is
+    still refused (argparse exits 2)."""
+    args = TS.build_parser().parse_args(["-m", "x.gguf"] + flag)
+    assert getattr(args, flag[0][2:]) == (flag[1] if flag[0] == "--lora" else int(flag[1]))
     with pytest.raises(SystemExit) as e:
-        TS.build_parser().parse_args(["-m", "x.gguf"] + flag)
+        TS.build_parser().parse_args(["-m", "x.gguf", flag[0] + "-x", flag[1]])
     assert e.value.code == 2

@@ -9,6 +9,8 @@ from tpu_llm.tokenizers.bpe import BPETokenizer as JTok
 from tpu_llm.tokenizers.tokenizer_bin import write_tokenizer_bin
 from tpu_llm_torch.io.gguf import GGUFFile as TGGUF
 from tpu_llm_torch.tokenizers.bpe import BPETokenizer as TTok
+import torch
+torch.set_num_threads(1)  # one intra-op thread a test process (xdist runs 6 on 8 cores)
 
 TEXTS = ["abc", " abc", "abcabc bc", "a b c ab", "cab\nb", "zzz abc", "",
          "<s>abc</s>"]

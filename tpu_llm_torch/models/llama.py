@@ -228,8 +228,18 @@ def _moe_ffn(cfg: LlamaConfig, x, lp, rs=None):
 
 
 def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
-           defer_kv: bool, update_fn=None, attn_fn=None):
+           defer_kv: bool, update_fn=None, attn_fn=None, reduce_fn=None):
+    # ``reduce_fn`` (tensor parallelism): the sum of the ranks' partial
+    # results of the row-parallel projections, applied after wo and after
+    # w2 / the MoE combine (or once on a parallel block's sum), before the
+    # replicated bo / b2 are added once; cfg is then the rank's LOCAL view
+    # (its heads and ffn columns, parallel/serving._tp_local_cfg). wo's and
+    # w2's partials stay f32 through the sum and are rounded once, to the
+    # dtype the unsharded projection gives; the FFN megakernel (K7) writes
+    # bf16 only, so on that path each rank's FFN partial is rounded to
+    # bf16 before the f32 sum and rounded again after it.
     B, T, _ = x.shape
+    part = None if reduce_fn is None else torch.float32
     h, rs = _norm_folded(cfg, x, lp, "attn")
     if "wqkv" in lp:
         Q, KV = cfg.q_dim, cfg.kv_dim
@@ -256,8 +266,10 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
     else:
         kc, vc = (update_fn or update_kv_cache)(kc, vc, k, v, offset)
         attn = (attn_fn or _attend)(q, kc, vc, positions, offset)
-    attn_out = matmul(attn.reshape(B, T, cfg.q_dim), lp["wo"])
-    if "bo" in lp:
+    attn_out = matmul(attn.reshape(B, T, cfg.q_dim), lp["wo"], out_dtype=part)
+    if reduce_fn is not None and not cfg.parallel_block:
+        attn_out = reduce_fn(attn_out).to(attn.dtype)
+    if "bo" in lp and (reduce_fn is None or not cfg.parallel_block):
         attn_out = attn_out + lp["bo"]
 
     if cfg.parallel_block:
@@ -267,10 +279,12 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
         mlp_in, rs = _norm_folded(cfg, x, lp, "ffn")
     if cfg.n_experts:
         mlp_out = _moe_ffn(cfg, mlp_in, lp, rs)
+        out_dt = mlp_out.dtype
     elif _use_ffn_megakernel(cfg, x, lp):
         if rs is not None:       # the megakernel takes the weighted input
             mlp_in = (mlp_in.float() * rs).to(mlp_in.dtype)
         mlp_out = ffn_fused(mlp_in, lp["w13"], lp["w2"])
+        out_dt = mlp_out.dtype
     else:
         act = gelu if cfg.act == "gelu" else silu
         if cfg.gated_mlp and "w13" in lp:
@@ -285,9 +299,20 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
             if "b3" in lp:
                 mid = mid + lp["b3"]
             mid = act(mid)
-        mlp_out = matmul(mid, lp["w2"])
-        if "b2" in lp:
-            mlp_out = mlp_out + lp["b2"]
+        mlp_out = matmul(mid, lp["w2"], out_dtype=part)
+        out_dt = mid.dtype
+    if reduce_fn is not None and cfg.parallel_block:
+        # one reduce of the block's partial sum, then both biases once
+        out = reduce_fn(attn_out.float() + mlp_out.float()).to(
+            torch.promote_types(attn.dtype, out_dt))
+        for b in ("bo", "b2"):
+            if b in lp:
+                out = out + lp[b]
+        return x + out
+    if reduce_fn is not None:
+        mlp_out = reduce_fn(mlp_out).to(out_dt)
+    if "b2" in lp:
+        mlp_out = mlp_out + lp["b2"]
     if cfg.parallel_block:
         return x + attn_out + mlp_out
     return x + mlp_out
@@ -295,7 +320,7 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache,
             offset, defer_kv: bool = False, update_fn=None,
-            attn_fn=None) -> Tuple[torch.Tensor, Cache]:
+            attn_fn=None, reduce_fn=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, T) at positions [offset, offset + T) -> (final-normed
     hidden (B, T, E), cache). ``offset`` is an int, or a device tensor: (B,)
     per-row positions, or one element for every row. With a tensor offset
@@ -303,7 +328,8 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache
     CUDA graph of the step serves every position. The cache planes are
     updated in place (``update_fn`` and ``attn_fn`` replace the write and
     the attention; a paged cache passes its per-layer state in
-    cache["k"])."""
+    cache["k"]). ``reduce_fn`` sums the tensor-parallel ranks' partial
+    results (``_block``)."""
     B, T = tokens.shape
     if defer_kv and (T != 1 or isinstance(cache["k"][0], QuantKV)):
         raise ValueError("defer_kv is a decode (T == 1) path over float caches")
@@ -321,7 +347,7 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache
                           cfg.rope_dims, cfg.rope_scaling)
     for i, lp in enumerate(params["layers"]):
         x = _block(cfg, x, lp, cache["k"][i], cache["v"][i], positions, offset,
-                   rope_cs, defer_kv, update_fn, attn_fn)
+                   rope_cs, defer_kv, update_fn, attn_fn, reduce_fn)
     return apply_final_norm(params, cfg, x), cache
 
 
@@ -331,16 +357,22 @@ def apply_final_norm(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
-def lm_head(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def lm_head(params: Params, cfg: LlamaConfig, x: torch.Tensor,
+            gather_fn=None) -> torch.Tensor:
     """Hidden states (B, T, E) -> logits (B, T, V), always f32. The
     classifier runs in x's dtype with an f32 result (``wcls``), or in f32
-    against the embedding table (tied embeddings); plus ``bcls`` (phi-2)."""
+    against the embedding table (tied embeddings); plus ``bcls`` (phi-2).
+    Under tensor parallelism ``wcls`` / ``bcls`` hold this rank's vocab
+    columns and ``gather_fn`` tiles the ranks' (B, T, V / tp) logits; the
+    replicated embedding table gives every rank the whole vocabulary."""
     if params.get("wcls") is not None:
         logits = matmul(x, params["wcls"], out_dtype=torch.float32)
     else:
         logits = torch.matmul(x.float(), params["tok_emb"].float().t())
     if params.get("bcls") is not None:
         logits = logits + params["bcls"]
+    if gather_fn is not None and params.get("wcls") is not None:
+        logits = gather_fn(logits)
     return logits
 
 
@@ -527,16 +559,29 @@ def load_gguf(path_or_gguf, dtype_policy: str = "f32", fuse: bool = True,
     return params, cfg
 
 
-def load_model(gguf, dtype_policy: str = "f32", device="cpu"
-               ) -> Tuple[Params, LlamaConfig]:
+def load_model(gguf, dtype_policy: str = "f32", device="cpu", lora=None,
+               verbose: bool = False) -> Tuple[Params, LlamaConfig]:
     """Load any llama-family GGUF by its ``general.architecture``: phi2
     through ``models/phi2.py``, llama / qwen2 / gemma (and MoE) here. The
-    CLIs' loader (``tpu_llm/runtime/cli.py``'s routing)."""
-    if gguf.hparam("general.architecture", default="llama") == "phi2":
+    CLIs' loader (``tpu_llm/runtime/cli.py``'s routing). ``lora`` (an
+    adapter GGUF, llama family only: ValueError otherwise) loads the
+    layers unfused, merges the adapter (io/lora.py) and then fuses them."""
+    arch = gguf.hparam("general.architecture", default="llama")
+    if lora and arch == "phi2":
+        raise ValueError("--lora supports the llama family")
+    if arch == "phi2":
         from tpu_llm_torch.models import phi2
 
         return phi2.load_gguf(gguf, dtype_policy=dtype_policy, device=device)
-    return load_gguf(gguf, dtype_policy=dtype_policy, device=device)
+    if not lora:
+        return load_gguf(gguf, dtype_policy=dtype_policy, device=device)
+    from tpu_llm_torch.io.lora import apply_lora
+    from tpu_llm_torch.quant.convert_params import fuse_llama_layers
+
+    params, cfg = load_gguf(gguf, dtype_policy=dtype_policy, fuse=False, device=device)
+    params = apply_lora(params, lora, verbose=verbose)
+    layers = fuse_llama_layers(params["layers"], lambda i, k: _LAYER_TENSORS[k].format(i=i))
+    return dict(params, layers=layers), cfg
 
 
 # -- weights carried across from the JAX package -----------------------------

@@ -303,10 +303,18 @@ class BatchEngine:
 
     def _prefill(self, idx: int, toks: torch.Tensor, last_idx: int) -> torch.Tensor:
         """Zero slot ``idx``'s rows and run the prompt (1, Tpad) into them
-        at offset 0. Returns the last prompt position's logits (1, V)."""
-        sub = _map_state(self.state, lambda a: a.narrow(self._baxis, idx, 1).zero_())
-        hidden, _ = self.adapter.apply(self.params, toks, sub, 0, length=last_idx + 1)
-        return self.adapter.lm_head(self.params, hidden[:, last_idx:last_idx + 1])[:, 0, :]
+        at offset 0. Returns the last prompt position's logits (1, V) (under
+        data parallelism: computed by the rank that holds the slot's rows,
+        and shared)."""
+        ad = self.adapter
+        row = idx if ad.local_row is None else ad.local_row(idx, self.batch)
+        if row is None:
+            logits = torch.zeros((1, self._vocab), dtype=torch.float32, device=self.device)
+        else:
+            sub = _map_state(self.state, lambda a: a.narrow(self._baxis, row, 1).zero_())
+            hidden, _ = ad.apply(self.params, toks, sub, 0, length=last_idx + 1)
+            logits = ad.lm_head(self.params, hidden[:, last_idx:last_idx + 1])[:, 0, :]
+        return logits if ad.share_row is None else ad.share_row(logits, idx, self.batch)
 
     def _decode(self, offsets: torch.Tensor) -> torch.Tensor:
         """One batched decode step from the device-side tokens: (B, V)
@@ -348,7 +356,10 @@ class BatchEngine:
         (1, Tpad) into them at offset 0 (the prefill without its sampling)."""
         dparams, dadapter = self._draft
         ax = dadapter.state_batch_axis
-        sub = _map_state(self._draft_state, lambda a: a.narrow(ax, idx, 1).zero_())
+        row = idx if dadapter.local_row is None else dadapter.local_row(idx, self.batch)
+        if row is None:
+            return
+        sub = _map_state(self._draft_state, lambda a: a.narrow(ax, row, 1).zero_())
         dadapter.apply(dparams, toks, sub, 0, length=last_idx + 1)
 
     # -- public API -------------------------------------------------------

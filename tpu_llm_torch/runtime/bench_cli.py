@@ -27,9 +27,19 @@ package's metric names. Rows:
   ``vs_baseline`` over 6.237, the reference's Mamba-130M figure (one CPU
   core; ssm/README.md).
 
---scaling, --sharded and --serve-tp need the parallelism the port does
-not have yet: they exit 2 naming the ROADMAP.md item they wait for, and
-print no row.
+- ``--scaling``: data-parallel weak scaling, decode tokens/s at dp = 1,
+  2, 4, ... ranks with ``--batch`` rows a rank, and the efficiency against
+  dp = 1 as ``vs_baseline``; ``--sharded``: the explicit TP decode step
+  (``parallel/tp_decode.py``) at tp = 1, 2, ... up to min(devices, kv
+  heads); ``--serve-tp N``: BatchEngine tokens/s with the engine on a
+  tp-rank mesh (``shard_engine``), N clamped to the devices and the kv
+  heads with the JAX package's ``{"note": "serve-tp clamped ..."}`` line.
+  The devices are the GPUs (the one CPU under ``--device cpu``, where the
+  rows take the JAX package's small stand-in config and the
+  ``_cpuvirtual`` names); ``llm-bench`` spawns one rank a device and rank
+  0 prints. Their steps run eagerly (a gloo group cannot be captured in a
+  CUDA graph); a gloo group on one card is a correctness path, not a
+  speed figure.
 
 Weights are random, drawn on the device from a seeded ``torch.Generator``
 (throughput does not depend on their values), packed in the layouts the
@@ -60,11 +70,6 @@ from tpu_llm_torch.config import llama2_7b, mamba_130m, tinyllama_1_1b
 
 REFERENCE_TOK_S = 7.3
 REFERENCE_MAMBA_TOK_S = 6.237      # the reference's Mamba-130M, ssm/README.md
-
-# the ROADMAP.md queue 1 item each refused row waits for
-_LATER = {"--scaling": "item 9, parallelism", "--sharded": "item 9, parallelism",
-          "--serve-tp": "item 9, parallelism"}
-
 
 def _row(metric: str, value: float, unit: str, vs_baseline, **extra):
     print(json.dumps({"metric": metric, "value": round(value, 2), "unit": unit,
@@ -434,6 +439,175 @@ def _spec_rows(args, device) -> int:
     return 0
 
 
+# -- the parallel rows ---------------------------------------------------------------
+
+def _small_cfg():
+    """The JAX package's stand-in for TinyLlama in its CPU parallel rows."""
+    from tpu_llm_torch.config import LlamaConfig
+
+    return LlamaConfig(dim=256, hidden_dim=512, n_layers=4, n_heads=8, n_kv_heads=4,
+                       vocab_size=2048, seq_len=256)
+
+
+def _small_params(cfg, device):
+    """Its weights: N(0, 0.02) f32 from numpy's seed 0, norms around 1."""
+    rng = np.random.default_rng(0)
+    s = lambda *sh: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(sh) * 0.02).astype(np.float32)).to(device)
+    E, F, V, KV = cfg.dim, cfg.hidden_dim, cfg.vocab_size, cfg.kv_dim
+    layers = [{"attn_norm": s(E) + 1.0, "ffn_norm": s(E) + 1.0, "wq": s(E, E), "wk": s(E, KV),
+               "wv": s(E, KV), "wo": s(E, E), "w1": s(E, F), "w3": s(E, F), "w2": s(F, E)}
+              for _ in range(cfg.n_layers)]
+    return {"tok_emb": s(V, E), "final_norm": s(E) + 1.0, "wcls": s(E, V), "layers": layers}
+
+
+def _step_loop_tok_s(step, params, cache, batch: int, rows: int, steps: int, mesh) -> float:
+    """Tokens/s of ``rows`` total rows (``batch`` on this rank) through an
+    eager greedy step loop from position 1, slope-timed; each run ends on
+    a host fetch and a barrier of the mesh, so its ranks time alike."""
+    dev = mesh.device
+
+    def make_run(n):
+        def run():
+            tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
+            for pos in range(1, n + 1):
+                logits, _ = step(params, tok, cache, pos)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok.tolist()
+            mesh.barrier()
+        return run
+
+    from tpu_llm_torch.runtime.timing import slope_time_s
+
+    return rows / slope_time_s(make_run, steps, steps * 5)
+
+
+@torch.inference_mode()
+def _scaling_rows(args, device, ndev: int, tl_cfg):
+    """Weak scaling: at dp = 1, 2, 4, ... <= ndev, each of the first dp
+    ranks decodes ``--batch`` rows with the whole model; tokens/s of all
+    dp * batch rows, and the efficiency against dp = 1."""
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.parallel.mesh import make_mesh
+
+    on_card = device.type == "cuda"
+    cfg = tl_cfg if on_card else _small_cfg()
+    max_seq = min(cfg.seq_len, args.max_seq)
+    steps = min(args.steps, max(1, (max_seq - 2) // 5))
+    params = None
+    base, dp = None, 1
+    while dp <= ndev:
+        mesh = make_mesh(dp, 1, device=device.type, ranks=list(range(dp)))
+        if mesh.member:
+            if params is None:
+                params = (random_llama_params(cfg, device=mesh.device) if on_card
+                          else _small_params(cfg, mesh.device))
+            cache = M.init_cache(cfg, args.batch, max_seq, torch.bfloat16, mesh.device)
+            tok_s = _step_loop_tok_s(lambda p, t, c, pos: M.decode_step(p, cfg, t, c, pos),
+                                     params, cache, args.batch, args.batch * dp, steps, mesh)
+            base = base or tok_s
+            if mesh.index == 0:
+                _row(f"scaling_dp{dp}_decode_tokens_per_s" + ("" if on_card else "_cpuvirtual"),
+                     tok_s, "tok/s", round(tok_s / (dp * base), 3))
+        dp *= 2
+    return 0
+
+
+@torch.inference_mode()
+def _tp_rows(args, device, ndev: int, tl_cfg):
+    """The explicit TP decode step at tp = 1, 2, ... <= min(ndev, kv heads):
+    TinyLlama q4_0 (fused, repacked for tp) on the card, the small f32
+    stand-in on the CPU."""
+    from tpu_llm_torch.parallel.mesh import make_mesh
+    from tpu_llm_torch.parallel.tp_decode import (init_tp_cache, make_tp_decode_step,
+                                                  repack_fused_for_tp, shard_tp_params)
+
+    on_card = device.type == "cuda"
+    cfg = tl_cfg if on_card else _small_cfg()
+    name = "q4_0" if on_card else "bf16"
+    max_seq = min(cfg.seq_len, args.max_seq)
+    steps = min(args.steps, max(1, (max_seq - 2) // 5))
+    tp = 1
+    while tp <= min(ndev, cfg.n_kv_heads):
+        mesh = make_mesh(1, tp, device=device.type, ranks=list(range(tp)))
+        if mesh.member:
+            params = (synth_quant_llama(cfg, "q4_0", device=mesh.device) if on_card
+                      else _small_params(cfg, mesh.device))
+            fused = "wqkv" in params["layers"][0]
+            if fused and tp > 1:
+                params = dict(params, layers=repack_fused_for_tp(params["layers"], cfg, tp))
+            p_sh = shard_tp_params(params, cfg, mesh, fused=fused)
+            del params
+            cache = init_tp_cache(cfg, mesh, args.batch, max_seq)
+            step = make_tp_decode_step(cfg, mesh)
+            tok_s = _step_loop_tok_s(step, p_sh, cache, args.batch, args.batch, steps, mesh)
+            if mesh.index == 0:
+                _row(f"tp{tp}_shardmap_{name}_decode_tokens_per_s"
+                     + ("" if on_card else "_cpuvirtual"), tok_s, "tok/s",
+                     round(tok_s / REFERENCE_TOK_S, 2) if on_card else None)
+            del p_sh, cache
+        tp *= 2
+    return 0
+
+
+@torch.inference_mode()
+def _serve_tp_rows(args, device, ndev: int, tl_cfg):
+    """BatchEngine tokens/s with the engine on a tp-rank mesh (bf16
+    weights, a bf16 cache), ``--batch`` requests of a 64-token prompt,
+    after a warm-up run."""
+    from tpu_llm_torch.parallel.mesh import make_mesh
+    from tpu_llm_torch.parallel.serving import shard_engine
+    from tpu_llm_torch.runtime.batching import BatchEngine, Request
+    from tpu_llm_torch.runtime.engine import ModelAdapter
+
+    cfg = tl_cfg
+    tp = max(1, min(args.serve_tp, ndev, cfg.n_kv_heads))
+    mesh = make_mesh(1, tp, device=device.type, ranks=list(range(tp)))
+    if not mesh.member:
+        return 0
+    lead = mesh.index == 0
+    if tp < args.serve_tp and lead:
+        print(json.dumps({"note": f"serve-tp clamped {args.serve_tp}->{tp} "
+                                  f"({ndev} devices, {cfg.n_kv_heads} kv heads)"}), flush=True)
+    params = random_llama_params(cfg, device=mesh.device)
+    # built on the host, then placed: shard_engine moves the state and the shards
+    eng = BatchEngine(params, ModelAdapter.llama(cfg, torch.bfloat16, device="cpu"),
+                      batch=args.batch, max_seq=args.max_seq)
+    eng = shard_engine(eng, cfg, mesh)
+    del params
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(5, cfg.vocab_size - 1, 64).tolist()
+    for _ in range(args.batch):
+        eng.submit(Request(prompt=list(prompt), max_new=8))
+    eng.run()
+    reqs = [Request(prompt=list(prompt), max_new=args.steps) for _ in range(args.batch)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    mesh.barrier()
+    dt = time.perf_counter() - t0
+    total = sum(len(r.tokens) for r in reqs)
+    if lead:
+        _row(f"tinyllama_1.1b_bf16_engine_serving_tp{tp}_tokens_per_s_b{args.batch}",
+             total / dt, "tok/s", round(total / dt / REFERENCE_TOK_S, 2))
+    return 0
+
+
+def _parallel_rank(rank: int, argv, tl_cfg) -> int:
+    """One rank of the parallel rows (every rank of the world runs it; the
+    first prints)."""
+    from tpu_llm_torch.parallel.mesh import rank_device
+
+    args = build_parser().parse_args(argv)
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    device = rank_device(args.device, rank)
+    rows = (_scaling_rows if args.scaling else _tp_rows if args.sharded else _serve_tp_rows)
+    return rows(args, device, world, tl_cfg)
+
+
 # -- main --------------------------------------------------------------------------
 
 def build_parser() -> argparse.ArgumentParser:
@@ -449,9 +623,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--skip-ttft", action="store_true")
     ap.add_argument("--cache-dtype", default="bf16", choices=["f32", "bf16", "int8"])
     ap.add_argument("--scaling", action="store_true",
-                    help="dp-scaling rows (refused: needs parallel/*)")
+                    help="dp-scaling rows (tok/s + efficiency at dp=1,2,4,... over the "
+                         "available devices)")
     ap.add_argument("--sharded", action="store_true",
-                    help="TP decode rows (refused: needs parallel/*)")
+                    help="explicit TP decode rows (tp=1,2,... up to min(devices, kv heads))")
     ap.add_argument("--paged", action="store_true",
                     help="paged-KV decode rows (block-table kernel vs dense cache at "
                          "the same batch)")
@@ -461,30 +636,36 @@ def build_parser() -> argparse.ArgumentParser:
                          "tokens-per-verify-forward vs the plain step)")
     ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--serve-tp", type=int, default=0, metavar="N",
-                    help="mesh-sharded serving row (refused: needs parallel/*)")
+                    help="mesh-sharded serving row (BatchEngine on a tp-rank mesh; clamps "
+                         "to the available devices)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
 
-def _refused(args) -> list:
-    """The rows of this run that wait for a later slice, with the item."""
-    return [(flag, _LATER[flag]) for flag, on in (
-        ("--scaling", args.scaling), ("--sharded", args.sharded),
-        ("--serve-tp", args.serve_tp)) if on]
-
-
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     names = [n.strip() for n in args.configs.split(",")]
-    refused = _refused(args)
-    if refused:
-        for what, item in refused:
-            print(f"llm-bench: {what} is not in this slice of tpu_llm_torch "
-                  f"(ROADMAP.md queue 1, {item})", file=sys.stderr)
-        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
+    if args.scaling or args.sharded or args.serve_tp:
+        from tpu_llm_torch.parallel.distributed import configured_world, launch
+        from tpu_llm_torch.parallel.mesh import device_count
+
+        ndev = device_count(args.device)
+        if ndev == 1 or configured_world() > 1:
+            from tpu_llm_torch.parallel.distributed import init_distributed
+
+            rank, _ = init_distributed(device=args.device)
+            return _parallel_rank(rank, argv, tinyllama_1_1b())
+        try:
+            rcs = launch(_parallel_rank, ndev, argv, tinyllama_1_1b(), device=args.device,
+                         quiet=True)
+        except RuntimeError as e:
+            print(f"llm-bench: {e}", file=sys.stderr)
+            return 1
+        return max(rcs)
     device = torch.device(args.device)
     if args.paged:
         return _paged_rows(args, device)

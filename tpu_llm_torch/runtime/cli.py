@@ -10,9 +10,17 @@ K and --draft GGUF (speculative decoding), the sampling controls --top-k,
 --top-p, --min-p, --repeat-penalty, --frequency-penalty and
 --presence-penalty, --timings (the five-bucket report), --profile DIR (a
 torch.profiler trace of the generation, as a Chrome trace in DIR) and
---device (cuda unless told otherwise). Any other flag of the JAX
-package's CLI (--lora, --tp, --dp and the multi-host flags) is refused by
-argparse. Output contract
+--device (cuda unless told otherwise), --lora GGUF (an adapter merged
+into the unfused weights at load, then fused; io/lora.py), and the
+parallel flags: --tp N / --dp M (tensor / data parallelism over N * M
+ranks on torch.distributed; a single process spawns them itself, rank 0
+alone printing; parallel/*) and the multi-process bring-up
+--coordinator HOST:PORT --num-processes N --process-id I (or the
+TPU_LLM_* / torchrun environment). -v prints the mesh and its backend.
+--scan with more than one rank on the card needs NCCL (a CUDA graph
+cannot hold gloo's collectives): on a gloo group it exits 2, and so does
+--timings with more than one rank (its buckets time one card's
+unsharded layer). Output contract
 (``tpu_llm/runtime/cli.py``): the streamed raw token bytes (with --scan,
 the decoded text at the end instead), then a blank line, the inference
 time, the decode tokens/second and the TTFT, then the timing report, the
@@ -85,38 +93,80 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default="", metavar="DIR",
                    help="write a torch.profiler trace of the generation (Chrome "
                         "trace format, trace.json) into DIR")
+    p.add_argument("--lora", default=None, metavar="GGUF",
+                   help="LoRA adapter GGUF (llama.cpp convert_lora format) merged into "
+                        "the base weights at load")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: shard projections by heads/ffn/vocab "
+                        "over the mesh's model axis")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel degree (the batch axis of the mesh)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process bring-up: process 0's address "
+                        "(torch.distributed); or set TPU_LLM_COORDINATOR / "
+                        "_NUM_PROCESSES / _PROCESS_ID")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
 
     import torch
 
     from tpu_llm_torch.io.gguf import GGUFFile
     from tpu_llm_torch.models.llama import load_model
+    from tpu_llm_torch.parallel.distributed import configured_world, front_end_mesh
     from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
     from tpu_llm_torch.tokenizers.bpe import BPETokenizer
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
-    device = torch.device(args.device)
+    if args.timings and (args.tp * args.dp > 1 or args.num_processes or args.coordinator
+                         or configured_world() > 1):
+        print("--timings times one card's unsharded layer: run it without --tp / --dp "
+              "and without a multi-process world", file=sys.stderr)
+        return 2
+    rc, mesh = front_end_mesh(main, argv, args.tp, args.dp, args.device, args.coordinator,
+                              args.num_processes, args.process_id)
+    if rc is not None:
+        return rc
+    lead = mesh is None or mesh.index == 0       # the one rank that prints
+    if mesh is not None and args.scan and mesh.backend == "gloo" and args.device == "cuda":
+        if lead:
+            print("--scan captures the decode step in a CUDA graph, which cannot hold the "
+                  f"{mesh.backend} backend's collectives (ranks sharing one card); run "
+                  "without --scan, or one GPU a rank (nccl)", file=sys.stderr)
+        return 2
+    device = mesh.device if mesh is not None else torch.device(args.device)
+    # a sharded model loads on the host and each rank moves its own shards
+    load_dev = torch.device("cpu") if mesh is not None else device
 
     t_load = time.perf_counter()
     tokenizer = None
+    if args.lora and (args.ak or args.model.endswith(".npz")):
+        print("--lora merges into a GGUF llama-family model", file=sys.stderr)
+        return 1
     if args.model.endswith(".npz"):
         from tpu_llm_torch.io.weight_cache import load_weight_cache
 
-        params, cfg = load_weight_cache(args.model, device)
+        params, cfg = load_weight_cache(args.model, load_dev)
     elif args.ak:
         from tpu_llm_torch.io.ak import load_ak
 
-        params, cfg = load_ak(args.model, dtype_policy=args.dtype, device=device)
+        params, cfg = load_ak(args.model, dtype_policy=args.dtype, device=load_dev)
     else:
         gguf = GGUFFile(args.model)
-        params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
+        try:
+            params, cfg = load_model(gguf, dtype_policy=args.dtype, device=load_dev,
+                                     lora=args.lora, verbose=args.verbose and lead)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 1
         if "tokenizer.ggml.tokens" in gguf.metadata:
             tokenizer = BPETokenizer.from_gguf(gguf)
     if args.fold_norms:
@@ -130,29 +180,47 @@ def main(argv=None) -> int:
     if tokenizer is None:
         print("no tokenizer available (use -s tokenizer.bin)", file=sys.stderr)
         return 1
-    if args.verbose:
+    if args.verbose and lead:
         print(f"config: {cfg}", file=sys.stderr)
         print(f"device: {device}"
               + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda"
                  else ""), file=sys.stderr)
         print(f"loaded weights in {time.perf_counter() - t_load:.2f}s", file=sys.stderr)
+        if mesh is not None:
+            print(mesh.describe(), file=sys.stderr)
 
     max_seq = args.max_seq or min(cfg.seq_len, max(args.num_tokens + 8, 64))
     cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                    "int8": "int8"}[args.cache_dtype]
     bos_id = tokenizer.bos_id if getattr(tokenizer, "add_bos", True) else -1
-    adapter = ModelAdapter.llama(cfg, cache_dtype=cache_dtype, bos_id=bos_id,
-                                 device=device)
-    engine = Engine(params, adapter, max_seq=max_seq, device=device)
+
+    def engine_for(params, cfg):
+        if mesh is None:
+            return Engine(params, ModelAdapter.llama(cfg, cache_dtype=cache_dtype,
+                                                     bos_id=bos_id, device=device),
+                          max_seq=max_seq, device=device)
+        from tpu_llm_torch.parallel.serving import make_tp_llama_adapter, shard_llama_params
+
+        if mesh.model > 1 and cfg.n_kv_heads % mesh.model:
+            raise ValueError(f"--tp {mesh.model} must divide n_kv_heads={cfg.n_kv_heads}")
+        return Engine(shard_llama_params(params, cfg, mesh),
+                      make_tp_llama_adapter(cfg, mesh, cache_dtype, bos_id),
+                      max_seq=max_seq, device=device)
+
     draft_engine = None
-    if args.draft:
-        dparams, dcfg = load_model(GGUFFile(args.draft), dtype_policy=args.dtype,
-                                   device=device)
-        if args.rope != "interleaved" and args.rope != dcfg.rope_variant:
-            dcfg = dataclasses.replace(dcfg, rope_variant=args.rope)
-        draft_engine = Engine(dparams, ModelAdapter.llama(dcfg, cache_dtype=cache_dtype,
-                                                          bos_id=bos_id, device=device),
-                              max_seq=max_seq, device=device)
+    try:
+        engine = engine_for(params, cfg)
+        if args.draft:
+            dparams, dcfg = load_model(GGUFFile(args.draft), dtype_policy=args.dtype,
+                                       device=load_dev)
+            if args.rope != "interleaved" and args.rope != dcfg.rope_variant:
+                dcfg = dataclasses.replace(dcfg, rope_variant=args.rope)
+            draft_engine = engine_for(dparams, dcfg)
+    except ValueError as e:
+        if lead:
+            print(e, file=sys.stderr)
+        return 1
+    del params
 
     prompt_ids = tokenizer.encode(args.prompt) if args.prompt else []
     n = args.num_tokens
@@ -164,10 +232,13 @@ def main(argv=None) -> int:
     out = sys.stdout.buffer
 
     def stream(tid: int):
-        out.write(tokenizer.token_bytes(tid))
-        out.flush()
+        if lead:
+            out.write(tokenizer.token_bytes(tid))
+            out.flush()
 
     seed = args.seed if args.seed is not None else int(time.time_ns() % (2**31))
+    if mesh is not None:          # every rank samples with the first rank's seed
+        seed = mesh.broadcast_object(seed)
     profiler = contextlib.nullcontext()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -182,9 +253,11 @@ def main(argv=None) -> int:
                               min_p=args.min_p, repetition_penalty=args.repeat_penalty,
                               frequency_penalty=args.frequency_penalty,
                               presence_penalty=args.presence_penalty)
-    if args.profile:
+    if args.profile and lead:
         os.makedirs(args.profile, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    if not lead:
+        return 0
     if args.scan:
         out.write(tokenizer.decode(res.tokens))
         out.flush()
@@ -202,7 +275,8 @@ def main(argv=None) -> int:
     elif args.timings:
         from tpu_llm_torch.runtime.phase_timing import format_report, measure_phase_times
 
-        res.phase_times = measure_phase_times(params, cfg, batch=1, pos=len(res.tokens),
+        res.phase_times = measure_phase_times(engine.params, cfg, batch=1,
+                                              pos=len(res.tokens),
                                               max_seq=max_seq)
         print(format_report(res.phase_times))
     if args.profile:

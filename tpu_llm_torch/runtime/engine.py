@@ -79,6 +79,12 @@ class ModelAdapter:
     # may write ahead and accept a prefix. False for recurrent state.
     positional_state: bool = True
     vocab_size: int = 0
+    # data parallelism (parallel/serving.py): local_row(idx, batch) is the
+    # local state row of engine slot idx (None: another data rank owns
+    # it), share_row(logits, idx, batch) the owner's (1, V) prefill logits
+    # on every rank; None: every row is local
+    local_row: Optional[Callable] = None
+    share_row: Optional[Callable] = None
 
     @classmethod
     def llama(cls, cfg, cache_dtype=torch.float32, bos_id: int = 1,

@@ -96,6 +96,9 @@ class PagedEngine(BatchEngine):
         self.prefill_chunk = prefill_chunk
         self._prefix_caching = prefix_caching
         self._next_rid = 0
+        # tensor parallelism (parallel/serving.shard_engine): the model
+        # group's all-reduce and the classifier's vocab gather
+        self._reduce = self._gather = None
         self.state = self._fresh_state()
         self._init_spec(speculative_k, draft, cfg.vocab_size)
         self._reset_common()
@@ -150,8 +153,14 @@ class PagedEngine(BatchEngine):
 
         hidden, _ = M.forward(self.params, self.cfg, tokens,
                               self._layer_caches(table, lengths), offset,
-                              update_fn=_paged_update_fn, attn_fn=_paged_attn_fn)
+                              update_fn=_paged_update_fn, attn_fn=_paged_attn_fn,
+                              reduce_fn=self._reduce)
         return hidden
+
+    def _logits(self, hidden):
+        from tpu_llm_torch.models import llama as M
+
+        return M.lm_head(self.params, self.cfg, hidden, gather_fn=self._gather)
 
     def _slot_rows(self, idx: int):
         return (self.state["table"][idx:idx + 1], self.state["lengths"][idx:idx + 1])
@@ -165,24 +174,18 @@ class PagedEngine(BatchEngine):
         """The prompt tail (1, Tpad) at positions [pos0, pos0 + Tpad)
         through the slot's table row; shared prefix blocks are already
         mapped. Returns the last prompt position's logits (1, V)."""
-        from tpu_llm_torch.models import llama as M
-
         hidden = self._forward(toks, *self._slot_rows(idx), pos0)
-        return M.lm_head(self.params, self.cfg, hidden[:, last_idx:last_idx + 1])[:, 0, :]
+        return self._logits(hidden[:, last_idx:last_idx + 1])[:, 0, :]
 
     def _decode(self, offsets) -> torch.Tensor:
-        from tpu_llm_torch.models import llama as M
-
         hidden = self._forward(self._token_dev[:, None], self.state["table"],
                                self.state["lengths"], offsets)
-        return M.lm_head(self.params, self.cfg, hidden)[:, 0, :]
+        return self._logits(hidden)[:, 0, :]
 
     def _verify_logits(self, tokens, offsets) -> torch.Tensor:
-        from tpu_llm_torch.models import llama as M
-
         hidden = self._forward(tokens, self.state["table"], self.state["lengths"],
                                offsets)
-        return M.lm_head(self.params, self.cfg, hidden)
+        return self._logits(hidden)
 
     def _set_slot_meta(self, idx: int, blocks: List[int], length: int) -> None:
         """Reset one slot's whole table row (stale entries of the previous

@@ -18,10 +18,11 @@ tokenizer.bin.
 
 Flags: -m -p -f -n -t -s, --dtype f32|bf16|native, --cache-dtype
 f32|bf16|int8, --batch, --max-seq, --paged, --block-size, --n-blocks,
---spec, --draft, --stop-at-eos, --top-k, --top-p, --min-p (each request's
+--spec, --draft, --lora GGUF (an adapter merged at load, llama family
+only), --tp N / --dp M (the engine on a mesh of N * M ranks,
+parallel/serving.py: a single process spawns them itself, and rank 0
+alone prints), --stop-at-eos, --top-k, --top-p, --min-p (each request's
 sampling filters), --seed, -v and --device (cuda unless told otherwise).
-Any other flag of the JAX package's front end (--lora, --tp, --dp) is
-refused by argparse.
 
 Output contract: one JSON object a request on stdout (prompt,
 completion, n_tokens, ttft_s), then the summary object on stderr.
@@ -62,8 +63,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft", default=None, metavar="GGUF",
                    help="small same-vocabulary draft model for two-model "
                         "speculation (needs --spec K)")
+    p.add_argument("--lora", default=None, metavar="GGUF",
+                   help="LoRA adapter GGUF merged into the base weights at load "
+                        "(llama.cpp convert_lora format)")
     p.add_argument("--spec", type=int, default=0, metavar="K",
                    help="speculative drafts per step (greedy slots)")
+    p.add_argument("--tp", type=int, default=1, metavar="N",
+                   help="tensor-parallel degree: shard the serving step over an "
+                        "N-rank model axis")
+    p.add_argument("--dp", type=int, default=1, metavar="N",
+                   help="data-parallel degree: shard engine batch rows over an N-rank "
+                        "data axis (batch %% dp == 0)")
     p.add_argument("--stop-at-eos", action="store_true")
     p.add_argument("--top-k", type=int, default=0,
                    help="per-request top-k filter (0 = off)")
@@ -95,7 +105,11 @@ def _load(args, device):
         from tpu_llm_torch.models.llama import load_model
 
         gguf = GGUFFile(args.model)
-        params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device)
+        try:
+            params, cfg = load_model(gguf, dtype_policy=args.dtype, device=device,
+                                     lora=args.lora, verbose=args.verbose)
+        except ValueError as e:
+            raise SystemExit(str(e))
         if "tokenizer.ggml.tokens" in gguf.metadata:
             tokenizer = BPETokenizer.from_gguf(gguf)
     if args.tokenizer:
@@ -105,9 +119,11 @@ def _load(args, device):
     return params, cfg, tokenizer
 
 
-def make_engine(args, params, cfg, tokenizer, max_seq, device):
+def make_engine(args, params, cfg, tokenizer, max_seq, device, mesh=None):
     """The dense or paged engine from parsed serving flags (a Mamba model:
-    the dense engine only, SystemExit for --paged and --draft)."""
+    the dense engine only, SystemExit for --paged and --draft), placed on
+    ``mesh`` (parallel/serving.shard_engine) when one is given: then
+    ``params`` may live on the host, and the engine is built there first."""
     import torch
 
     from tpu_llm_torch.config import MambaConfig
@@ -119,6 +135,12 @@ def make_engine(args, params, cfg, tokenizer, max_seq, device):
     bos_id = (getattr(tokenizer, "bos_id", 1)
               if getattr(tokenizer, "add_bos", True) else -1)
     eos_id = getattr(tokenizer, "eos_id", 2)
+    if mesh is not None:
+        if isinstance(cfg, MambaConfig):
+            raise SystemExit("--tp/--dp require a llama-family target")
+        if args.batch % mesh.data:
+            raise SystemExit(f"--batch {args.batch} must divide by --dp {mesh.data}")
+        device = torch.device("cpu")
     if isinstance(cfg, MambaConfig):
         if args.paged:
             raise SystemExit("--paged requires a KV-cache model (llama family)")
@@ -133,6 +155,9 @@ def make_engine(args, params, cfg, tokenizer, max_seq, device):
 
         dparams, dcfg = load_model(GGUFFile(args.draft), dtype_policy=args.dtype,
                                    device=device)
+        if mesh is not None and mesh.model > 1 and dcfg.n_kv_heads % mesh.model:
+            raise SystemExit(f"--tp {mesh.model} must divide the draft model's "
+                             f"n_kv_heads={dcfg.n_kv_heads}")
         draft = (dparams, ModelAdapter.llama(dcfg, cache_dtype=torch.bfloat16,
                                              bos_id=bos_id, device=device))
     if args.paged:
@@ -140,17 +165,43 @@ def make_engine(args, params, cfg, tokenizer, max_seq, device):
 
         bs = args.block_size or (32 if args.cache_dtype == "int8" else 16)
         n_blocks = args.n_blocks or (1 + args.batch * ((max_seq + bs - 1) // bs))
-        return PagedEngine(params, cfg, batch=args.batch, n_blocks=n_blocks,
-                           block_size=bs, max_seq=max_seq, cache_dtype=cache_dtype,
-                           speculative_k=args.spec, bos_id=bos_id, eos_id=eos_id,
-                           draft=draft, device=device)
-    adapter = ModelAdapter.llama(cfg, cache_dtype=cache_dtype, bos_id=bos_id,
-                                 device=device)
-    return BatchEngine(params, adapter, batch=args.batch, max_seq=max_seq,
-                       eos_id=eos_id, speculative_k=args.spec, draft=draft)
+        eng = PagedEngine(params, cfg, batch=args.batch, n_blocks=n_blocks,
+                          block_size=bs, max_seq=max_seq, cache_dtype=cache_dtype,
+                          speculative_k=args.spec, bos_id=bos_id, eos_id=eos_id,
+                          draft=draft, device=device)
+    else:
+        adapter = ModelAdapter.llama(cfg, cache_dtype=cache_dtype, bos_id=bos_id,
+                                     device=device)
+        eng = BatchEngine(params, adapter, batch=args.batch, max_seq=max_seq,
+                          eos_id=eos_id, speculative_k=args.spec, draft=draft)
+    if mesh is None:
+        return eng
+    from tpu_llm_torch.parallel.serving import shard_engine
+
+    try:
+        return shard_engine(eng, cfg, mesh, draft_cfg=dcfg if draft else None)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def spawn_or_mesh(main, argv, args):
+    """The serving front ends' world: (exit code, None) when done (ranks
+    spawned, or a refusal), else (None, mesh or None)."""
+    from tpu_llm_torch.parallel.distributed import front_end_mesh
+
+    if args.tp * args.dp > 1:
+        # the JAX front end's refusals that need no model, before any spawn
+        if args.model.endswith(".bin"):
+            print("--tp/--dp require a llama-family target", file=sys.stderr)
+            return 1, None
+        if args.batch % args.dp:
+            print(f"--batch {args.batch} must divide by --dp {args.dp}", file=sys.stderr)
+            return 1, None
+    return front_end_mesh(main, argv, args.tp, args.dp, args.device)
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
 
     import torch
@@ -160,7 +211,11 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
-    device = torch.device(args.device)
+    rc, mesh = spawn_or_mesh(main, argv, args)
+    if rc is not None:
+        return rc
+    lead = mesh is None or mesh.index == 0       # the one rank that prints
+    device = mesh.device if mesh is not None else torch.device(args.device)
 
     prompts = list(args.prompt)
     if args.prompts_file:
@@ -172,11 +227,13 @@ def main(argv=None) -> int:
 
     t_load = time.perf_counter()
     try:
-        params, cfg, tokenizer = _load(args, device)
+        params, cfg, tokenizer = _load(args, device if mesh is None else "cpu")
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
-    if args.verbose:
+    if args.verbose and lead:
+        if mesh is not None:
+            print(mesh.describe(), file=sys.stderr)
         print(f"config: {cfg}", file=sys.stderr)
         print(f"device: {device}"
               + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda"
@@ -192,10 +249,12 @@ def main(argv=None) -> int:
         # route (S % 256 gate)
         max_seq = min(-(-max_seq // 256) * 256, ctx_cap)
     try:
-        engine = make_engine(args, params, cfg, tokenizer, max_seq, device)
+        engine = make_engine(args, params, cfg, tokenizer, max_seq, device, mesh)
     except SystemExit as e:
-        print(e, file=sys.stderr)
+        if lead:
+            print(e, file=sys.stderr)
         return 1
+    del params
 
     t0 = time.perf_counter()
     first_tok_s = {}
@@ -218,6 +277,8 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+    if not lead:
+        return 0
 
     n_generated = 0
     for i, (req, text) in enumerate(zip(reqs, prompts)):

@@ -45,6 +45,10 @@ another thread launches work during it, so one thread launches everything.
 The responses are the JAX package's. The loop thread runs under
 ``torch.inference_mode()`` (a per-thread switch), so no step is recorded
 for autograd.
+
+--tp / --dp (and --lora) as ``llm-serve`` takes them: rank 0 owns the
+HTTP server and the loop, and broadcasts each step's plan to the other
+ranks, which run the same step (``ServingLoop``, ``follow``).
 """
 
 from __future__ import annotations
@@ -244,26 +248,46 @@ class _Tracker:
 
 
 class _Job:
-    """A function for the loop thread to run between engine steps."""
+    """A function for the loop thread to run between engine steps;
+    ``spec`` describes it to the other ranks of a mesh (the token ids of
+    an embedding job, which every rank runs)."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, spec=None):
         self.fn = fn
+        self.spec = spec
         self.done = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
 
 
+# the Request fields a plan carries to the other ranks (not the callback,
+# nor what the engine fills)
+_PLAN_FIELDS = ("prompt", "max_new", "temperature", "seed", "stop_at_eos", "top_k", "top_p",
+                "min_p", "logprobs", "top_logprobs", "frequency_penalty", "presence_penalty",
+                "repetition_penalty", "logit_bias", "stop_token_ids")
+
+
 class ServingLoop(threading.Thread):
     """Owns the engine: the only thread that calls submit / step /
     _collect / cancel, and the only one that launches work on the card
-    (embedding jobs included)."""
+    (embedding jobs included).
+
+    On a mesh of ranks (``mesh``: the engine placed by
+    parallel/serving.shard_engine) this loop runs on the first rank, which
+    owns the HTTP queue: before each step it broadcasts the step's plan
+    (admissions, cancellations, embedding jobs, stop) on the CPU control
+    group, at least every 0.25 s, and every other rank runs the same step
+    (``follow``). A failed step there ends the server with an error (a
+    rank is gone or out of step): no restart."""
 
     daemon = True
 
-    def __init__(self, engine, max_queue: int = 256):
+    def __init__(self, engine, max_queue: int = 256, mesh=None):
         super().__init__(name="llm-serving-loop")
         self.engine = engine
         self.max_queue = max_queue
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.failed: Optional[BaseException] = None
         self._cv = threading.Condition()
         self._pending = []           # [(Request, _Tracker)]
         self._jobs = []              # [_Job]
@@ -289,11 +313,15 @@ class ServingLoop(threading.Thread):
             self._cv.notify()
         return True
 
-    def call(self, fn: Callable, timeout: float):
+    def call(self, fn: Callable, timeout: float, spec=None):
         """Run ``fn()`` on the loop thread between engine steps and return
         its result (its exception is raised here). RuntimeError when the
-        loop is stopping, TimeoutError when ``timeout`` passes first."""
-        job = _Job(fn)
+        loop is stopping, TimeoutError when ``timeout`` passes first. On a
+        mesh, ``spec`` (an embedding job's token id lists) lets the other
+        ranks run it too."""
+        if self.mesh is not None and spec is None:
+            raise RuntimeError("a job on a mesh of ranks needs its spec")
+        job = _Job(fn, spec)
         with self._cv:
             if self._stopping:
                 raise RuntimeError("serving loop is stopping")
@@ -337,8 +365,17 @@ class ServingLoop(threading.Thread):
     # -- loop thread ---------------------------------------------------------
 
     def run(self) -> None:
-        with torch.inference_mode():
-            self._run()
+        try:
+            with torch.inference_mode():
+                self._run()
+        except BaseException as e:      # noqa: BLE001 — main() reads .failed
+            self.failed = e
+            raise
+
+    def _share(self, **plan) -> None:
+        """The step's plan to the other ranks of the mesh."""
+        if self.mesh is not None:
+            self.mesh.broadcast_object(plan)
 
     def _run(self) -> None:
         eng = self.engine
@@ -347,13 +384,21 @@ class ServingLoop(threading.Thread):
                 while (not self._stopping and not self._pending and not self._jobs
                        and not (eng._queue or eng.n_active)):
                     self._cv.wait(timeout=0.25)
+                    if self.mesh is not None:
+                        break                # the other ranks wait for a plan
                 if self._stopping and not (self._pending or eng._queue or eng.n_active):
                     for job in self._jobs:
                         job.error = RuntimeError("serving loop is stopping")
                         job.done.set()
+                    self._share(stop=True)
                     return
                 pending, self._pending = self._pending, []
                 jobs, self._jobs = self._jobs, []
+            cancels = [rid for rid, (req, tr) in self._tracked.items()
+                       if tr.want_cancel and not req.done]
+            self._share(stop=False, cancel=cancels, jobs=[job.spec for job in jobs],
+                        submit=[{f: getattr(req, f) for f in _PLAN_FIELDS}
+                                for req, _ in pending])
             for req, tr in pending:
                 try:
                     eng.submit(req)
@@ -369,9 +414,8 @@ class ServingLoop(threading.Thread):
                 job.done.set()
             # stop-string matches recorded by the token callbacks: cancel
             # between steps (the engine is only touched from this thread)
-            for rid, (req, tr) in list(self._tracked.items()):
-                if tr.want_cancel and not req.done:
-                    eng.cancel(req)
+            for rid in cancels:
+                eng.cancel(self._tracked[rid][0])
             if eng._queue or eng.n_active:
                 try:
                     eng.step()
@@ -384,10 +428,24 @@ class ServingLoop(threading.Thread):
                         if tr:
                             tr.finish(error=str(e))
                 except Exception as e:     # noqa: BLE001 — recovery path
+                    if self.mesh is not None:
+                        self._fail(e)
+                        raise
                     self._restart(e)
                 if not (eng._queue or eng.n_active):
                     eng._collect()   # flush the pipelined last step
             self._reap()
+
+    def _fail(self, exc: BaseException) -> None:
+        """A failed step on a mesh: fail every request and stop."""
+        print(f"[llm-server] engine step failed on a mesh of ranks ({exc!r}); "
+              f"the server stops", file=sys.stderr, flush=True)
+        with self._cv:
+            self._stopping = True
+        for rid, (req, tr) in list(self._tracked.items()):
+            req.done = True
+            tr.finish(error=f"engine failed: {exc}")
+        self._tracked.clear()
 
     def _restart(self, exc: BaseException) -> None:
         """Engine-step crash recovery: fail every in-flight and queued
@@ -421,6 +479,39 @@ class ServingLoop(threading.Thread):
             self.n_completed += 1
             self.n_tokens += len(req.tokens)
             tr.finish()
+
+
+def follow(engine, mesh, embedder) -> None:
+    """The serving loop of a rank other than the first: each step's plan
+    from the first rank (``ServingLoop``), then the same submissions,
+    embedding jobs, cancellations and step, until the plan says stop."""
+    from tpu_llm_torch.runtime.batching import Request
+
+    tracked = {}
+    with torch.inference_mode():
+        while True:
+            plan = mesh.broadcast_object()
+            if plan["stop"]:
+                return
+            for fields in plan["submit"]:
+                req = Request(**fields)
+                try:
+                    engine.submit(req)
+                except (ValueError, MemoryError):
+                    continue
+                tracked[req.rid] = req
+            for ids in plan["jobs"]:
+                [embedder.embed(x) for x in ids]
+            for rid in plan["cancel"]:
+                engine.cancel(tracked[rid])
+            if engine._queue or engine.n_active:
+                try:
+                    engine.step()
+                except MemoryError:
+                    engine._queue.clear()
+                if not (engine._queue or engine.n_active):
+                    engine._collect()
+            tracked = {rid: r for rid, r in tracked.items() if not r.done}
 
 
 def make_handler(loop: ServingLoop, tokenizer, max_new_cap: int,
@@ -460,7 +551,7 @@ def make_handler(loop: ServingLoop, tokenizer, max_new_cap: int,
             ids = [tokenizer.encode(text) for text in inputs[:64]]
             try:
                 vecs = loop.call(lambda: [embedder.embed(x) for x in ids],
-                                 timeout=request_timeout_s)
+                                 timeout=request_timeout_s, spec=ids)
             except TimeoutError:
                 self._json(504, {"error": "embedding timed out"})
                 return
@@ -852,10 +943,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def serve(engine, tokenizer, host: str, port: int, *, max_queue: int = 256,
           max_new_cap: int = 4096, timeout_s: float = 600.0, model_name: str = "tpu-llm",
-          chat_template: str = "zephyr", embedder: Optional[Embedder] = None):
+          chat_template: str = "zephyr", embedder: Optional[Embedder] = None, mesh=None):
     """Start the loop thread and make the HTTP server: (server, loop); the
-    caller runs server.serve_forever()."""
-    loop = ServingLoop(engine, max_queue=max_queue)
+    caller runs server.serve_forever(). On a mesh the other ranks run
+    ``follow``."""
+    loop = ServingLoop(engine, max_queue=max_queue, mesh=mesh)
     loop.start()
     handler = make_handler(loop, tokenizer, max_new_cap, timeout_s, model_name=model_name,
                            chat_template=chat_template, embedder=embedder)
@@ -869,15 +961,20 @@ def main(argv=None) -> int:
 
     from tpu_llm_torch.runtime.engine import ModelAdapter
     from tpu_llm_torch.config import MambaConfig
-    from tpu_llm_torch.runtime.serve_cli import _load, make_engine
+    from tpu_llm_torch.runtime.serve_cli import _load, make_engine, spawn_or_mesh
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
         return 1
-    device = torch.device(args.device)
+    rc, mesh = spawn_or_mesh(main, argv, args)
+    if rc is not None:
+        return rc
+    lead = mesh is None or mesh.index == 0
+    device = mesh.device if mesh is not None else torch.device(args.device)
     try:
-        params, cfg, tokenizer = _load(args, device)
+        params, cfg, tokenizer = _load(args, device if mesh is None else "cpu")
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
@@ -886,21 +983,40 @@ def main(argv=None) -> int:
     if args.paged and max_seq > 256 and max_seq % 256:
         max_seq = min(-(-max_seq // 256) * 256, ctx_cap)
     try:
-        engine = make_engine(args, params, cfg, tokenizer, max_seq, device)
+        engine = make_engine(args, params, cfg, tokenizer, max_seq, device, mesh)
     except SystemExit as e:
-        print(e, file=sys.stderr)
+        if lead:
+            print(e, file=sys.stderr)
         return 1
-    adapter = (ModelAdapter.mamba(cfg, device) if isinstance(cfg, MambaConfig)
-               else ModelAdapter.llama(cfg, device=device))
-    embedder = Embedder(params, adapter, max_len=min(max_seq, 512))
+    if mesh is not None:
+        from tpu_llm_torch.parallel.serving import make_tp_llama_adapter
+
+        adapter = make_tp_llama_adapter(cfg, mesh)
+    elif isinstance(cfg, MambaConfig):
+        adapter = ModelAdapter.mamba(cfg, device)
+    else:
+        adapter = ModelAdapter.llama(cfg, device=device)
+    del params
+    embedder = Embedder(engine.params, adapter, max_len=min(max_seq, 512))
+    if not lead:
+        follow(engine, mesh, embedder)
+        return 0
     model_name = args.served_model_name or os.path.basename(args.model)
     httpd, loop = serve(engine, tokenizer, args.host, args.port, max_queue=args.max_queue,
                         max_new_cap=max(1, max_seq - 2), timeout_s=args.timeout,
                         model_name=model_name, chat_template=args.chat_template,
-                        embedder=embedder)
+                        embedder=embedder, mesh=mesh)
     print(f"llm-server listening on http://{args.host}:{httpd.server_address[1]} "
           f"(engine={type(engine).__name__}, slots={args.batch}, max_seq={max_seq}, "
-          f"device={device})", file=sys.stderr, flush=True)
+          f"device={device}"
+          + (f", {mesh.describe()}" if mesh is not None else "") + ")",
+          file=sys.stderr, flush=True)
+
+    def watch():                 # a loop that stops (a failed mesh step) ends the server
+        loop.join()
+        httpd.shutdown()
+
+    threading.Thread(target=watch, daemon=True).start()
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -908,7 +1024,7 @@ def main(argv=None) -> int:
     finally:
         httpd.shutdown()
         loop.shutdown()
-    return 0
+    return 1 if loop.failed is not None else 0
 
 
 if __name__ == "__main__":
