@@ -230,6 +230,25 @@ Phases, one JSON line each:
    `tp2_case` entries of the kernels line), and bench_cli the parallel
    rows (--scaling, --sharded, --serve-tp 2), clamped to the card's one
    device as the JAX package clamps them.
+17. seq_pipe_full_width — the phase-16 .npz with f32 activations and
+   caches; one launch of four ranks on the card (gloo) runs ring
+   attention prefill (seq 4, 2048 tokens), sequence-sharded decode (a
+   1020-token prompt prefilled on one rank, its rows scattered, 16 greedy
+   steps across the 1024 boundary), Ulysses (degree 4: a 2032-token
+   prefill through K4, the reshard, 16 steps through K2), sequence-
+   parallel prefill (tp 2 x dp 2, 2 x 1024 tokens), the pipeline (pipe 2
+   x dp 2: 2 x 2032 tokens in 2 chunks through K4, 16 steps through K2)
+   and PP x TP (pipe 2 x tp 2: an 8-token prompt, 16 steps). Exact kernel
+   counts on every rank; first-token logits within 1e-3 * max|logit| of
+   the single-rank kernel path with the same top-1; the cache rows each
+   rank wrote within 1e-3 * max|k| of that path's elementwise (a near-tie
+   row, where the kernel path and its plain twin lie apart by more than a
+   quarter of that, within 4x their distance) and within 1e-3 of it a
+   layer (Frobenius, relative); every greedy token on the plain path's
+   argmax; the row has the seconds, the collectives a step or prefill as
+   the mesh counted them, and the peak memory of each rank and case. The
+   kernels phase adds K4 and K2 at a rank's shapes on these paths
+   (check_seq_pipe_shapes: the `seq_pipe_*_case` entries).
 Each main-path run starts with every launch count at 0 and reads the
 counts after; a kernel of the path that never launched fails the run.
 
@@ -603,6 +622,7 @@ def check_kernels(torch, timer):
     check_paged_kernels(torch, timer, g, compare, record)
     check_family_shapes(torch, timer, g, compare, record)
     check_tp_shapes(torch, timer, g, compare, record)
+    check_seq_pipe_shapes(torch, timer, g, compare, record)
     return cases
 
 
@@ -666,6 +686,74 @@ def check_tp_shapes(torch, timer, g, compare, record):
                                                            enable_gqa=True)),
            nbytes(q) * 2 + 2 * B * pos * Hkv * D * 2 + nbytes(kn, vn) + 2 * Hkv * D * 2,
            4.0 * B * H * (pos + 1) * D, "f32")
+
+
+def check_seq_pipe_shapes(torch, timer, g, compare, record):
+    """K4 and K2 at the shapes a rank of phase seq_pipe_full_width gives
+    them (f32 q over f32 caches, 64-wide heads; each case tagged with its
+    path as ``seq_pipe``): K4 for the Ulysses prefill (8 q heads over 1 kv
+    head, 2032 rows over the gathered 2032-row k / v), the sequence-
+    parallel prefill (16 / 2 heads, 1024 rows over the 2048-row cache)
+    and the pipeline's two 1016-row chunks (32 / 4 heads, offsets 0 and
+    1016, the 2048-row cache); K2 at each of the 16 positions of the
+    Ulysses (8 / 1 heads), pipeline (32 / 4) and PP x TP (16 / 2) decode
+    runs, recorded at the last with the largest error of the 16."""
+    from tpu_llm_torch.ops import flash_attention as FA
+
+    F = torch.nn.functional
+    dev, D, it = "cuda", 64, 4
+    chunk = SP_LONG // 2
+    for path, H, Hkv, T, S, off in (("ulysses_prefill", 8, 1, SP_LONG, SP_LONG, 0),
+                                    ("sp_prefill", 16, 2, SP_SP_T, SP_MAX_SEQ, 0),
+                                    ("pp_prefill", 32, 4, chunk, SP_MAX_SEQ, 0),
+                                    ("pp_prefill", 32, 4, chunk, SP_MAX_SEQ, chunk)):
+        q = torch.randn((1, T, H, D), generator=g, device=dev)
+        kc, vc = (torch.randn((1, S, Hkv, D), generator=g, device=dev) for _ in range(2))
+        if path != "ulysses_prefill":        # the cache planes, as the path holds them
+            kc, vc = kc.view(1, S, Hkv * D), vc.view(1, S, Hkv * D)
+        info = dict(B=1, T=T, H=H, Hkv=Hkv, D=D, S=S, offset=off, q="f32", cache="f32",
+                    seq_pipe=path)
+        got = FA.flash_gqa_attention(q, kc, vc, off)
+        err, tol = compare("flash_gqa_attention", got,
+                           FA.flash_gqa_attention_plain(q, kc, vc, off), False, **info)
+        n_keys = off + T
+        kt, vt = (c.view(1, S, Hkv, D)[:, :n_keys].transpose(1, 2) for c in (kc, vc))
+        causal = (torch.arange(n_keys, device=dev)[None, :]
+                  <= off + torch.arange(T, device=dev)[:, None])
+        qt = q.transpose(1, 2)
+        record("flash_gqa_attention", dict(info, library="sdpa, mask s <= offset + t"),
+               err, tol,
+               timer.ms(lambda: FA.flash_gqa_attention(q, kc, vc, off)),
+               timer.ms(lambda: FA.flash_gqa_attention_plain(q, kc, vc, off)),
+               timer.ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=causal, enable_gqa=True)),
+               nbytes(q) * 2 + 2 * n_keys * Hkv * D * it,
+               4.0 * H * D * (T * off + T * (T + 1) / 2), "f32")
+        del q, kc, vc, kt, vt, causal
+    for path, H, Hkv, first in (("ulysses_decode", 8, 1, SP_LONG),
+                                ("pp_decode", 32, 4, SP_LONG),
+                                ("pp_tp_decode", 16, 2, SP_PPTP_PROMPT)):
+        kc, vc = (torch.randn((1, SP_MAX_SEQ, Hkv * D), generator=g, device=dev)
+                  for _ in range(2))
+        q = torch.randn((1, 1, H, D), generator=g, device=dev)
+        last = first + SP_NEW - 1
+        info = dict(B=1, H=H, Hkv=Hkv, D=D, S=SP_MAX_SEQ, pos=last, positions=[first, last],
+                    q="f32", cache="f32", seq_pipe=path)
+        errs = []
+        for pos in range(first, last + 1):
+            p = torch.tensor([pos], dtype=torch.int32, device=dev)
+            errs.append(compare("flash_decode_attention", FA.flash_decode_attention(q, kc, vc, p),
+                                FA.flash_decode_attention_plain(q, kc, vc, p), False,
+                                **dict(info, pos=pos)))
+        k4, v4 = (c.view(1, SP_MAX_SEQ, Hkv, D)[:, :last + 1].transpose(1, 2) for c in (kc, vc))
+        record("flash_decode_attention", info, max(e for e, _ in errs), min(t for _, t in errs),
+               timer.ms(lambda: FA.flash_decode_attention(q, kc, vc, p)),
+               timer.ms(lambda: FA.flash_decode_attention_plain(q, kc, vc, p)),
+               timer.ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k4, v4,
+                                                               enable_gqa=True)),
+               nbytes(q) * 2 + 2 * (last + 1) * Hkv * D * it + nbytes(p),
+               4.0 * H * (last + 1) * D, "f32")
+        del q, kc, vc, k4, v4
 
 
 def check_serving_shapes(torch, timer, g, compare, record, heads=(32, 4), tp=None):
@@ -2709,7 +2797,7 @@ def synth_family(torch, cfg, seed: int, kind: str = "q4_0"):
 
 
 def greedy_vs_plain(torch, label, params, cfg, ids, tokens, tie_rel=2e-2, cache="f32",
-                    gate=True):
+                    gate=True, keep_cache=False):
     """The greedy tokens of the kernel path held against the plain path on
     the card: one teacher-forced plain forward over ``ids`` + ``tokens``
     over a ``cache`` ("f32", "bf16" or "int8": the run's KV storage) cache;
@@ -2717,14 +2805,15 @@ def greedy_vs_plain(torch, label, params, cfg, ids, tokens, tie_rel=2e-2, cache=
     max|logit| of the plain max (a near-tie: the bf16 tolerance of
     logits_vs_plain). Returns the counts, and the largest gap below the
     plain max of a step off the argmax, over max|logit|. ``gate=False``
-    only reports (a reading against another reference than the run's)."""
+    only reports (a reading against another reference than the run's).
+    ``keep_cache`` returns the plain forward's cache beside the row."""
     from tpu_llm_torch.models import llama as M
 
     seq = torch.tensor([ids + tokens[:-1]], device="cuda")
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": "int8"}[cache]
     with torch.inference_mode(), plain_path():
         c = M.init_cache(cfg, 1, seq.shape[1], dt, "cuda")
-        x, _ = M.forward(params, cfg, seq, c, 0)
+        x, c = M.forward(params, cfg, seq, c, 0)
         logits = M.lm_head(params, cfg, x[:, len(ids) - 1:])[0]
     want = torch.tensor(tokens, device="cuda")
     top = logits.max(dim=-1).values
@@ -2739,7 +2828,7 @@ def greedy_vs_plain(torch, label, params, cfg, ids, tokens, tie_rel=2e-2, cache=
     emit("greedy_vs_plain", **row)
     if gate and not ok:
         fail(f"{label}: greedy tokens off the plain path beyond a near-tie: {row}")
-    return row
+    return (row, c) if keep_cache else row
 
 
 def rows_vs_plain(torch, label, kern_fn, rel_tol=2e-2):
@@ -3943,7 +4032,482 @@ def tp_full_width(torch, tmp: str):
         fail(f"multiprocess llm --tp 2: {mrow} {outs[0][1][-2000:]!r} {outs[1][1][-2000:]!r}")
     del params, p32
     torch.cuda.empty_cache()
-    return dict(runs=runs, total=total, row=row, multiprocess=mrow)
+    return dict(runs=runs, total=total, row=row, multiprocess=mrow, npz=npz)
+
+
+# -- phase seq_pipe_full_width: sequence and pipeline parallelism ---------------
+
+SP_MAX_SEQ = 2048          # every case's cache rows; every position stays below
+SP_NEW = 16                # greedy tokens a decode case
+SP_CP_PROMPT = 1020        # CP decode: rank 1 owns rows 512-1023, rank 2 from 1024
+SP_LONG = 2032             # the Ulysses and pipeline prompts: + 16 tokens = 2048 rows
+SP_SP_T = 1024             # sequence-parallel prefill rows a batch row
+SP_PPTP_PROMPT = 8         # PP x TP: prompt tokens fed one a step, then the greedy ones
+# a rank's cache rows against the single-rank path's: elementwise within
+# 1e-3 * max|k| (or |v|) of the whole single-rank cache, and per layer the
+# difference's Frobenius norm within SP_CACHE_REL of the part's. On these
+# random weights and 2048-token prompts a few rows sit at a near-tie in
+# attention, where f32 rounding picks the outcome (the single-rank kernel
+# path lies 25.6 from its plain twin at row 1806 of the Ulysses prompt).
+# Such a row is held instead to SP_TIE_SPREAD times the kernel path's own
+# distance from its plain twin there (near_tie_gaps, hold_cache_rows): two
+# pairs of f32 routes through one near-tie land apart by amounts up to ~3x
+# each other on the card
+SP_CACHE_REL = 1e-3
+SP_TIE_SPREAD = 4
+# the kernels every rank of a run must launch
+SP_MUST = {"ring_prefill": ("qmatmul",), "cp_decode": ("qmatmul",),
+           "ulysses_prefill": ("qmatmul", "flash_gqa_attention"),
+           "ulysses_decode": ("qmatmul", "flash_decode_attention"),
+           "sp_prefill": ("qmatmul",),
+           "pp_prefill": ("qmatmul", "flash_gqa_attention"),
+           "pp_decode": ("qmatmul", "flash_decode_attention"),
+           "pp_tp_decode": ("qmatmul", "flash_decode_attention")}
+
+
+def seq_pipe_prompts(vocab: int):
+    """The phase's prompts: BOS and seeded random ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(92)
+    ids = lambda n: [1] + rng.integers(3, vocab, n - 1).tolist()  # noqa: E731
+    return dict(ring=ids(SP_MAX_SEQ), cp=ids(SP_CP_PROMPT), ulysses=ids(SP_LONG),
+                sp=[ids(SP_SP_T), ids(SP_SP_T)], pp=[ids(SP_LONG), ids(SP_LONG)],
+                pp_tp=ids(SP_PPTP_PROMPT))
+
+
+def seq_pipe_rank(rank: int, npz: str, prompts: dict, device: str = "cuda"):
+    """One of the four ranks of phase seq_pipe_full_width (run by
+    tpu_llm_torch.parallel.distributed.launch, gloo on the one card): each
+    case on a mesh of its own, f32 activations, an f32 cache. Each run
+    (the parallel path alone) is timed, its kernel counts set to 0 before
+    and read after, its collectives counted by the mesh and its peak
+    memory read; then the rank holds what it holds against the
+    single-rank kernel path of the same tokens (one forward over the
+    prompt and the tokens the run fed): the first-token logits where it
+    has them, and its part of the cache. ``device="cpu"`` runs the same
+    cases on CPU tensors (a dry run of the code at a small config)."""
+    import torch
+
+    from tpu_llm_torch.io.weight_cache import load_weight_cache
+    from tpu_llm_torch.models import llama as M
+    from tpu_llm_torch.parallel import pipeline, ring, sequence, ulysses
+    from tpu_llm_torch.parallel.mesh import make_mesh
+    from tpu_llm_torch.parallel.serving import _tp_local_cfg, shard_llama_params
+    from tpu_llm_torch.parallel.tp_decode import init_tp_cache
+
+    params, cfg = load_weight_cache(npz, device)
+    params["tok_emb"] = params["tok_emb"].float()
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    out = {}
+
+    def run(name, mesh, fn, steps=1):
+        mesh.counts.clear()
+        reset_counts()
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        value = fn()
+        if card:
+            torch.cuda.synchronize()
+        out[name] = dict(s=time.perf_counter() - t, counts=read_counts(), steps=steps,
+                         collectives=dict(mesh.counts), index=(mesh.pipe_index,
+                                                               mesh.data_index, mesh.model_index),
+                         peak_mb=torch.cuda.max_memory_allocated() / 2**20 if card else None)
+        return value
+
+    def reference(ids, first: int):
+        """The single-rank kernel path over ``ids``: the logits at position
+        ``first``, the hidden state and the cache."""
+        c = M.init_cache(cfg, 1, SP_MAX_SEQ, torch.float32, dev)
+        x, c = M.forward(params, cfg, torch.tensor([ids], device=dev), c, 0)
+        return M.lm_head(params, cfg, x[:, first:first + 1])[0, 0], x, c
+
+    def check_logits(name, got, want):
+        out[name].update(logits_err=(got - want).abs().max().item(),
+                         logits_tol=1e-3 * want.abs().max().item(),
+                         top1=int(got.argmax()), top1_ref=int(want.argmax()))
+
+    def check_cache(name, planes, ref, layers, rows, row0=0, cols=slice(None)):
+        """The rows ``rows`` (a slice of cache rows: those the case wrote
+        on this rank; its planes' row 0 is row ``row0``) and columns
+        ``cols`` of this rank's planes against the same part of its
+        layers of the single-rank cache: per layer the difference's
+        Frobenius norm over that part's (the largest of these), per row
+        the largest |difference| over the layers and columns (the parent
+        holds each row to ``cache_tol``, 1e-3 * max|k| (or |v|) of the
+        whole single-rank cache, or a near-tie row to SP_TIE_SPREAD times
+        the kernel path's distance from its plain twin: hold_cache_rows)."""
+        mine = (slice(None), slice(rows.start - row0, rows.stop - row0))
+        part = (slice(None), rows, cols)
+        out[name]["cache_rows"] = [rows.start, rows.stop]
+        for kk in ("k", "v"):
+            diffs = [(planes[kk][j][mine] - ref[kk][i][part], ref[kk][i][part])
+                     for j, i in enumerate(layers)]
+            out[name][f"cache_rel_{kk}"] = max((d.norm() / r.norm()).item() for d, r in diffs)
+            out[name][f"cache_rows_{kk}"] = torch.stack(
+                [d.abs().amax(dim=(0, 2)) for d, _ in diffs]).amax(0).tolist()
+            out[name][f"cache_tol_{kk}"] = 1e-3 * max(c.abs().max().item() for c in ref[kk])
+
+    def greedy(name, mesh, step, cache, tok, pos0, n=SP_NEW):
+        toks = []
+
+        def loop():
+            nonlocal cache
+            t = tok
+            for i in range(n):
+                logits, cache = step(t, cache, pos0 + i)
+                t = logits.argmax(dim=-1)
+                toks.append(int(t[0]))
+            return logits
+        run(name, mesh, loop, steps=n)
+        out[name]["tokens"] = toks
+        return cache
+
+    def heads(start, n):        # columns [start, start + n): kv heads
+        return slice(start, start + n)
+
+    with torch.inference_mode():
+        # ring attention (CP) prefill, seq 4, T = 2048
+        mesh = make_mesh(1, 4, device=device)
+        r = mesh.model_index
+        ids = torch.tensor([prompts["ring"]], device=dev)
+        Tl = SP_MAX_SEQ // 4
+
+        def ring_prefill():
+            c = ring.init_cp_cache(cfg, mesh, 1, SP_MAX_SEQ)
+            x, c = ring.prefill_context_parallel(params, cfg, ids, c, mesh)
+            return c, (M.lm_head(params, cfg, x[:, -1:])[0, 0] if r == 3 else None)
+        cache, logits = run("ring_prefill", mesh, ring_prefill)
+        want, _, ref = reference(prompts["ring"], SP_MAX_SEQ - 1)
+        if r == 3:
+            check_logits("ring_prefill", logits, want)
+        L = cfg.n_layers
+        check_cache("ring_prefill", cache, ref, range(L), slice(r * Tl, (r + 1) * Tl), r * Tl)
+        del cache, ref
+
+        # sequence-sharded decode: the prompt prefilled on rank 0, its rows
+        # scattered to their owners, 16 greedy steps across the 1024 boundary
+        P = SP_CP_PROMPT
+        full = torch.zeros((2 * L, 1, SP_MAX_SEQ, cfg.kv_dim), device=dev)
+        tok = torch.zeros(1, dtype=torch.long, device=dev)
+        if r == 0:
+            lg, _, c = reference(prompts["cp"], P - 1)
+            full.copy_(torch.stack(c["k"] + c["v"]))
+            tok[0] = lg.argmax()
+            del c
+        mesh.broadcast(full, 0, mesh.model_group)
+        mesh.broadcast(tok, 0, mesh.model_group)
+        Sl = SP_MAX_SEQ // 4
+        shard = full[:, :, r * Sl:(r + 1) * Sl].clone()
+        cache = {"k": list(shard[:L].unbind(0)), "v": list(shard[L:].unbind(0))}
+        del full, shard
+        kept = {kk: [c.clone() for c in cache[kk]] for kk in cache}
+        first = {}
+
+        def cp_step(t, c, pos):
+            lg, c = ring.decode_step_context_parallel(params, cfg, t, c, pos, mesh)
+            first.setdefault("logits", lg[0])
+            return lg, c
+        cache = greedy("cp_decode", mesh, cp_step, cache, tok, P)
+        out["cp_decode"]["tok0"] = int(tok[0])
+        fed = [int(tok[0])] + out["cp_decode"]["tokens"][:-1]
+        want, _, ref = reference(prompts["cp"] + fed, P)
+        check_logits("cp_decode", first["logits"], want)
+        # the rows this rank owns of the 16 the steps wrote, held; the
+        # others of its shard as the scatter left them, bit for bit
+        a, b = max(P, r * Sl), min(P + SP_NEW, (r + 1) * Sl)
+        rest = torch.ones(Sl, dtype=torch.bool, device=dev)
+        if a < b:
+            check_cache("cp_decode", cache, ref, range(L), slice(a, b), r * Sl)
+            rest[a - r * Sl:b - r * Sl] = False
+        out["cp_decode"]["cache_kept"] = all(torch.equal(c[:, rest], k[:, rest])
+                                             for kk in cache for c, k in zip(cache[kk], kept[kk]))
+        del cache, ref, kept
+
+        # Ulysses, degree 4: prefill at T = 2032, the reshard, 16 greedy steps
+        T = SP_LONG
+        ids = torch.tensor([prompts["ulysses"]], device=dev)
+
+        def uly_prefill():
+            c = ring.init_cp_cache(cfg, mesh, 1, T)
+            x, c = ulysses.prefill_ulysses(params, cfg, ids, c, mesh)
+            lg = M.lm_head(params, cfg, x[:, -1:])[0, 0] if r == 3 else None
+            t = torch.zeros(1, dtype=torch.long, device=dev)
+            if r == 3:
+                t[0] = lg.argmax()
+            mesh.broadcast(t, 3, mesh.model_group)
+            return ulysses.reshard_cache_for_decode(c, SP_MAX_SEQ, mesh), lg, t
+        cache, logits, tok = run("ulysses_prefill", mesh, uly_prefill)
+        cache = greedy("ulysses_decode", mesh,
+                       lambda t, c, pos: ulysses.decode_ulysses(params, cfg, t, c, pos, mesh),
+                       cache, tok, T)
+        out["ulysses_decode"]["tok0"] = int(tok[0])
+        fed = [int(tok[0])] + out["ulysses_decode"]["tokens"][:-1]
+        want, _, ref = reference(prompts["ulysses"] + fed, T - 1)
+        if r == 3:
+            check_logits("ulysses_prefill", logits, want)
+        W = cfg.kv_dim // 4
+        check_cache("ulysses_decode", cache, ref, range(L), slice(0, SP_MAX_SEQ),
+                    cols=heads(r * W, W))
+        del cache, ref
+
+        # sequence parallelism at tp 2 x dp 2, batch 2, T = 1024
+        mesh = make_mesh(2, 2, device=device)
+        d, m = mesh.data_index, mesh.model_index
+        sh = shard_llama_params(params, cfg, mesh)
+        lcfg = _tp_local_cfg(cfg, 2)
+        ids = torch.tensor([prompts["sp"][d]], device=dev)
+
+        def sp_prefill():
+            c = init_tp_cache(cfg, mesh, 2, SP_MAX_SEQ, torch.float32)
+            x, c = sequence.prefill_sequence_parallel(sh, cfg, ids, c, mesh)
+            last = x[:, -1:].contiguous() if m == 1 else torch.empty_like(x[:, -1:])
+            last = mesh.broadcast(last, 1, mesh.model_group)
+            return x, c, M.lm_head(sh, lcfg, last, gather_fn=mesh.gather_model)[0, 0]
+        x, cache, logits = run("sp_prefill", mesh, sp_prefill)
+        want, xr, ref = reference(prompts["sp"][d], SP_SP_T - 1)
+        check_logits("sp_prefill", logits, want)
+        W = cfg.kv_dim // 2
+        check_cache("sp_prefill", cache, ref, range(L), slice(0, SP_SP_T), cols=heads(m * W, W))
+        # the rank's rows of the sequence are the single-rank prefill's
+        Tl = SP_SP_T // 2
+        out["sp_prefill"].update(hidden_err=(x - xr[:, m * Tl:(m + 1) * Tl]).abs().max().item(),
+                                 hidden_tol=1e-3 * xr.abs().max().item())
+        del sh, cache, ref, x, xr
+
+        # pipeline, pipe 2 x dp 2: 2032 tokens in 2 chunks, 16 greedy steps
+        mesh = make_mesh(2, 1, pipe=2, device=device)
+        d = mesh.data_index
+        sp = pipeline.stage_params(params, cfg, mesh)
+        ids = torch.tensor([prompts["pp"][d]], device=dev)
+
+        def pp_prefill():
+            c = pipeline.init_stage_cache(cfg, mesh, 2, SP_MAX_SEQ)
+            x, c = pipeline.prefill_pipelined(sp, cfg, ids, c, mesh, microbatches=2)
+            return c, M.lm_head(sp, cfg, x[:, -1:])[0, 0]
+        cache, logits = run("pp_prefill", mesh, pp_prefill)
+        tok = logits.argmax().reshape(1)
+        cache = greedy("pp_decode", mesh,
+                       lambda t, c, pos: pipeline.decode_step_pipelined(sp, cfg, t, c, pos,
+                                                                        mesh),
+                       cache, tok, T)
+        out["pp_decode"]["tok0"] = int(tok[0])
+        fed = [int(tok[0])] + out["pp_decode"]["tokens"][:-1]
+        want, _, ref = reference(prompts["pp"][d] + fed, T - 1)
+        check_logits("pp_prefill", logits, want)
+        check_cache("pp_decode", cache, ref, pipeline.stage_layers(cfg, mesh),
+                    slice(0, SP_LONG + SP_NEW))
+        del sp, cache, ref
+
+        # PP x TP, pipe 2 x tp 2: the prompt fed a step at a time, 16 greedy steps
+        mesh = make_mesh(1, 2, pipe=2, device=device)
+        m = mesh.model_index
+        sp = pipeline.stage_params(params, cfg, mesh)
+        cache = pipeline.init_stage_cache(cfg, mesh, 1, SP_MAX_SEQ)
+        step = lambda t, c, pos: pipeline.decode_step_pp_tp(sp, cfg, t, c, pos, mesh)  # noqa: E731
+        pr = prompts["pp_tp"]
+        feed = torch.tensor(pr, device=dev)
+
+        def pp_tp_prompt():
+            nonlocal cache
+            for i in range(len(pr)):
+                lg, cache = step(feed[i:i + 1], cache, i)
+            return lg[0]
+        logits = run("pp_tp_prompt", mesh, pp_tp_prompt, steps=len(pr))
+        tok = logits.argmax().reshape(1)
+        cache = greedy("pp_tp_decode", mesh, step, cache, tok, len(pr))
+        out["pp_tp_decode"]["tok0"] = int(tok[0])
+        fed = [int(tok[0])] + out["pp_tp_decode"]["tokens"][:-1]
+        want, _, ref = reference(pr + fed, len(pr) - 1)
+        check_logits("pp_tp_prompt", logits, want)
+        W = cfg.kv_dim // 2
+        check_cache("pp_tp_decode", cache, ref, pipeline.stage_layers(cfg, mesh),
+                    slice(0, len(pr) + SP_NEW), cols=heads(m * W, W))
+        out["backend"] = mesh.describe()
+    return out
+
+
+def near_tie_gaps(torch, params, cfg, ids, plain=None):
+    """Per cache row of ``ids``, k and v: the largest |difference| over the
+    layers and columns between the single-rank kernel path's cache and its
+    plain twin's (``plain``: that cache when the caller has it), as CPU
+    tensors. Where SP_TIE_SPREAD times it passes a case's tolerance, the
+    row is at a near-tie."""
+    from tpu_llm_torch.models import llama as M
+
+    seq = torch.tensor([ids], device="cuda")
+
+    def cache():
+        c = M.init_cache(cfg, 1, SP_MAX_SEQ, torch.float32, "cuda")
+        return M.forward(params, cfg, seq, c, 0)[1]
+    with torch.inference_mode():
+        kern = cache()
+        if plain is None:
+            with plain_path():
+                plain = cache()
+    n = len(ids)
+    return {kk: torch.stack([(a[:, :n] - b[:, :n]).abs().amax(dim=(0, 2))
+                             for a, b in zip(kern[kk], plain[kk])]).amax(0).cpu()
+            for kk in ("k", "v")}
+
+
+def hold_cache_rows(torch, label, x, gaps):
+    """A rank's cache rows (seq_pipe_rank's ``cache_rows_*``) against
+    ``gaps`` (near_tie_gaps over the same tokens, or zeros): each row
+    within the case's ``cache_tol``, or, at a near-tie row (SP_TIE_SPREAD
+    times its gap past that tolerance), within SP_TIE_SPREAD times the
+    gap. Fails the smoke on any row beyond; returns what it held."""
+    a, b = x["cache_rows"]
+    held = {}
+    for kk in ("k", "v"):
+        d, gap, tol = torch.tensor(x[f"cache_rows_{kk}"]), gaps[kk][a:b], x[f"cache_tol_{kk}"]
+        tie = SP_TIE_SPREAD * gap > tol
+        over = d > torch.where(tie, SP_TIE_SPREAD * gap, torch.full_like(gap, tol))
+        held[kk] = dict(tol=tol, max_abs=d.max().item(),
+                        max_abs_off_ties=d[~tie].max().item() if (~tie).any() else 0.0,
+                        near_tie_rows=(a + tie.nonzero()[:, 0]).tolist()[:8],
+                        n_near_tie_rows=int(tie.sum()),
+                        rows_over=(a + over.nonzero()[:, 0]).tolist()[:8])
+        if over.any():
+            fail(f"{label}: cache {kk} rows off the single-rank path beyond {tol} "
+                 f"(or {SP_TIE_SPREAD}x their near-tie gap): {held[kk]}")
+    return held
+
+
+def seq_pipe_full_width(torch, npz: str):
+    """Ring attention, sequence-sharded decode, Ulysses, sequence-parallel
+    prefill, the pipeline and PP x TP (tpu_llm_torch.parallel) at
+    TinyLlama-1.1B width and depth, Q4_0 (phase tp_full_width's .npz), f32
+    activations and caches: one launch of four ranks on the one card
+    (gloo) runs every case (seq_pipe_rank). Each rank's counts show its
+    run's kernels, exactly as the code launches them (K1 on every path,
+    K4 on the Ulysses and pipeline prefills, K2 on the Ulysses, pipeline
+    and PP x TP decode); each rank's first-token logits (where it has them)
+    lie within 1e-3 * max|logit| of the single-rank kernel path with the
+    same top-1; the cache rows it wrote lie within 1e-3 * max|k| (or |v|)
+    of that path's elementwise, except at a near-tie row, held to
+    SP_TIE_SPREAD times the kernel path's own distance from its plain twin
+    there (hold_cache_rows), and within SP_CACHE_REL of that path's per
+    layer (Frobenius, relative); a CP rank leaves the rows it does not own
+    as they were; every greedy token is on the plain path's argmax under
+    greedy_vs_plain's near-tie rule."""
+    from tpu_llm_torch.config import tinyllama_1_1b
+    from tpu_llm_torch.io.weight_cache import load_weight_cache
+    from tpu_llm_torch.parallel.distributed import launch
+
+    cfg = tinyllama_1_1b()
+    prompts = seq_pipe_prompts(cfg.vocab_size)
+    t = time.perf_counter()
+    try:
+        ranks = launch(seq_pipe_rank, 4, npz, prompts, device="cuda", timeout=900)
+    except RuntimeError as e:
+        fail(f"seq_pipe_full_width: {e}")
+    launch_s = time.perf_counter() - t
+    L = cfg.n_layers
+    Ls = L // 2                                 # a pipeline stage's layers
+    q_fwd = 4 * L                               # K1 launches of a forward (fused layout)
+    want = {"ring_prefill": lambda ix: dict(qmatmul=q_fwd + (ix[2] == 3), flash_gqa_attention=0,
+                                            flash_decode_attention=0),
+            "cp_decode": lambda ix: dict(qmatmul=(q_fwd + 1) * SP_NEW, flash_decode_attention=0),
+            "ulysses_prefill": lambda ix: dict(qmatmul=q_fwd + (ix[2] == 3),
+                                               flash_gqa_attention=L),
+            "ulysses_decode": lambda ix: dict(qmatmul=(q_fwd + 1) * SP_NEW,
+                                              flash_decode_attention=L * SP_NEW),
+            "sp_prefill": lambda ix: dict(qmatmul=q_fwd + 1, flash_gqa_attention=L),
+            "pp_prefill": lambda ix: dict(qmatmul=4 * Ls * 2 + 1, flash_gqa_attention=Ls * 2),
+            "pp_decode": lambda ix: dict(qmatmul=(4 * Ls + 1) * SP_NEW,
+                                         flash_decode_attention=Ls * SP_NEW),
+            "pp_tp_prompt": lambda ix: dict(qmatmul=(4 * Ls + 1) * SP_PPTP_PROMPT,
+                                            flash_decode_attention=Ls * SP_PPTP_PROMPT),
+            "pp_tp_decode": lambda ix: dict(qmatmul=(4 * Ls + 1) * SP_NEW,
+                                            flash_decode_attention=Ls * SP_NEW)}
+    runs, total = {}, {n: 0 for n in counters()}
+    for name, fn in want.items():
+        for r, res in enumerate(ranks):
+            c = res[name]["counts"]
+            for k in SP_MUST.get(name, ()):
+                if c[k] <= 0:
+                    fail(f"main path {name} rank {r}: kernel {k} was never launched ({c})")
+            w = fn(res[name]["index"])
+            if any(c[k] != v for k, v in w.items()):
+                fail(f"{name} rank {r}: launches {c}, want {w}")
+            for k, v in c.items():
+                total[k] += v
+            runs[f"{name}_rank{r}"] = c
+    # the held numbers, on every rank that has them
+    held = {}
+    for name in want:
+        for r, res in enumerate(ranks):
+            x = res[name]
+            if "logits_err" in x:
+                held.setdefault(name, {})[f"rank{r}_logits"] = [x["logits_err"], x["logits_tol"]]
+                if not x["logits_err"] <= x["logits_tol"] or x["top1"] != x["top1_ref"]:
+                    fail(f"{name} rank {r}: first-token logits off the single-rank path: "
+                         f"{x['logits_err']} > {x['logits_tol']} or top-1 "
+                         f"{x['top1']} != {x['top1_ref']}")
+            for kk in ("k", "v"):
+                if f"cache_rel_{kk}" in x:
+                    held.setdefault(name, {})[f"rank{r}_cache_rel_{kk}"] = x[f"cache_rel_{kk}"]
+                    if not x[f"cache_rel_{kk}"] <= SP_CACHE_REL:
+                        fail(f"{name} rank {r}: cache {kk} off the single-rank path: "
+                             f"{x[f'cache_rel_{kk}']} > {SP_CACHE_REL} (Frobenius, relative)")
+            if "cache_kept" in x and not x["cache_kept"]:
+                fail(f"{name} rank {r}: a cache row the rank does not own was written")
+            if "hidden_err" in x and not x["hidden_err"] <= x["hidden_tol"]:
+                fail(f"{name} rank {r}: hidden rows off the single-rank prefill: "
+                     f"{x['hidden_err']} > {x['hidden_tol']}")
+    # greedy tokens: alike on the ranks of a batch row, on the plain argmax;
+    # then each case's tokens (a batch row's) give the near-tie rows
+    params, _ = load_weight_cache(npz, "cuda")
+    params["tok_emb"] = params["tok_emb"].float()
+    gv, gaps = {}, {}
+    for name, prompt_of in (("cp_decode", lambda d: prompts["cp"]),
+                            ("ulysses_decode", lambda d: prompts["ulysses"]),
+                            ("pp_decode", lambda d: prompts["pp"][d]),
+                            ("pp_tp_decode", lambda d: prompts["pp_tp"])):
+        by_row = {}
+        for res in ranks:
+            x = res[name]
+            by_row.setdefault(x["index"][1], []).append([x["tok0"]] + x["tokens"])
+        for d, seqs in sorted(by_row.items()):
+            if any(sq != seqs[0] for sq in seqs):
+                fail(f"{name}: the ranks of batch row {d} generated different tokens: {seqs}")
+            gv[f"{name}[{d}]"], plain = greedy_vs_plain(torch, f"{name}[{d}]", params, cfg,
+                                                        prompt_of(d), seqs[0], keep_cache=True)
+            gaps[name, d] = near_tie_gaps(torch, params, cfg, prompt_of(d) + seqs[0][:-1],
+                                          plain)
+            del plain
+    gaps["ring_prefill", 0] = near_tie_gaps(torch, params, cfg, prompts["ring"])
+    for d in (0, 1):
+        gaps["sp_prefill", d] = near_tie_gaps(torch, params, cfg, prompts["sp"][d])
+    del params
+    torch.cuda.empty_cache()
+    rows_held = {}
+    for name in want:
+        for r, res in enumerate(ranks):
+            x = res[name]
+            if "cache_rows" in x:
+                rows_held[f"{name}_rank{r}"] = hold_cache_rows(
+                    torch, f"{name} rank {r}", x, gaps[name, x["index"][1]])
+
+    def per(name, res):
+        """The rank's collectives a step (or a prefill), counted."""
+        n = res[name]["steps"]
+        return {k: v / n for k, v in res[name]["collectives"].items()}
+
+    row = dict(model="tinyllama_1.1b", kind="q4_0", layers=L, ranks=4, activations="f32",
+               backend=ranks[0]["backend"], launch_s=launch_s,
+               run_s={name: [res[name]["s"] for res in ranks] for name in want},
+               collectives_a_step={name: [per(name, res) for res in ranks] for name in want},
+               peak_mb={name: [res[name]["peak_mb"] for res in ranks] for name in want},
+               held=held, cache_rows=rows_held,
+               greedy={k: greedy_summary(v) for k, v in gv.items()},
+               launches={k: {n: v for n, v in c.items() if v} for k, c in runs.items()})
+    emit("seq_pipe_full_width", **row)
+    return dict(runs=runs, total=total, row=row)
 
 
 # -- main --------------------------------------------------------------------------
@@ -3985,6 +4549,14 @@ for _name, _pick in (("flash_decode_attention", dict(tp=2, B=8)),
                      ("ffn_fused", dict(tp=2, rows=1))):
     EXTRA_CASES.setdefault(_name, {})["tp2_case"] = _pick
 EXTRA_CASES["qmatmul"].update({f"{n}_case": dict(weight=n, rows=1) for n in TP2_SHAPES})
+# the shapes of a rank of phase seq_pipe_full_width (check_seq_pipe_shapes)
+EXTRA_CASES["flash_gqa_attention"].update(
+    seq_pipe_ulysses_case=dict(seq_pipe="ulysses_prefill"),
+    seq_pipe_sp_case=dict(seq_pipe="sp_prefill"),
+    seq_pipe_pp_chunk0_case=dict(seq_pipe="pp_prefill", offset=0),
+    seq_pipe_pp_chunk1_case=dict(seq_pipe="pp_prefill", offset=SP_LONG // 2))
+EXTRA_CASES["flash_decode_attention"].update(
+    {f"seq_pipe_{p}_case": dict(seq_pipe=f"{p}_decode") for p in ("ulysses", "pp", "pp_tp")})
 
 # what the paged cases report of their launch: splits, kernels a call
 SPLIT_KEYS = ("n_split", "launches_per_call")
@@ -4059,8 +4631,9 @@ def main() -> int:
         pp = perplexity_phase(torch, ct["gguf"])
         lo = lora_full_width(torch, tmp, ct["gguf"])
         tpf = tp_full_width(torch, tmp)
+        spf = seq_pipe_full_width(torch, tpf["npz"])
     bc = bench_cli_full_width(torch)
-    phases = (fw, sc, sv, hs, mk, f32, kq, fam, mf, mc, ct, pp, lo, tpf, bc)
+    phases = (fw, sc, sv, hs, mk, f32, kq, fam, mf, mc, ct, pp, lo, tpf, spf, bc)
     total = {k: sum(ph["total"][k] for ph in phases) for k in fw["total"]}
 
     def case(name, pick):

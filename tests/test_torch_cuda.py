@@ -1039,3 +1039,27 @@ def test_filtered_sample_on_the_card_matches_cpu(gen, B, V):
         assert got.device.type == "cuda" and got.dtype == torch.int32
         assert torch.equal(got.cpu(), want), (trial, got.cpu(), want)
         r = torch.rand((B, 1), generator=gen, device="cuda")
+
+
+# -- the mesh's collectives on CUDA tensors (gloo's host route) ---------------
+
+def test_mesh_collectives_on_the_card_match_cpu(gen):
+    """Mesh.ppermute (both ways), all_to_all, reduce_scatter_model, the max,
+    send / recv and broadcast over a pipe 2 x model 2 mesh of four ranks
+    sharing the card in a gloo world: CUDA tensors (copied through the
+    host where gloo takes CPU tensors only) give what CPU tensors give,
+    bit for bit, and count alike."""
+    import numpy as np
+    # by its own name (pytest puts tests/ on sys.path): the "tests." form
+    # does not resolve everywhere this file runs with --noconftest
+    from torch_parallel_ranks import cuda_collectives_rank
+
+    from tpu_llm_torch.parallel.distributed import launch
+
+    for card, cpu in launch(cuda_collectives_rank, 4, device="cpu", timeout=300):
+        assert card.keys() == cpu.keys()
+        for k, v in cpu.items():
+            if k in ("index", "counts"):
+                assert card[k] == v, k
+            else:
+                np.testing.assert_array_equal(card[k], v, err_msg=k)

@@ -171,3 +171,197 @@ def fail_rank(rank: int, bad: int):
 
     dist.barrier()          # the other ranks wait on the failed one
     return rank
+
+
+# -- sequence and pipeline parallelism (parallel/ring, ulysses, sequence,
+#    pipeline) ------------------------------------------------------------------
+
+def _planes(cache):
+    return {k: [p.numpy().copy() for p in cache[k]] for k in ("k", "v")}
+
+
+def _shards(a, mesh, axis: int):
+    """This rank's contiguous block of numpy ``a`` along ``axis`` over the
+    model group, as a tensor."""
+    n, r = mesh.model, mesh.model_index
+    w = a.shape[axis] // n
+    return torch.from_numpy(a.take(range(r * w, (r + 1) * w), axis=axis).copy())
+
+
+def _case_collectives(mesh, kw):
+    """Mesh.ppermute / all_to_all / reduce_scatter_model / send / recv /
+    broadcast on this rank's block (x + 100 * rank, on kw["device"], the
+    CPU by default), and its grid indices."""
+    x = (torch.arange(48, dtype=torch.float32).reshape(2, 8, 3)
+         + 100 * mesh.rank).to(kw.get("device", "cpu"))
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    out = dict(index=(mesh.pipe_index, mesh.data_index, mesh.model_index),
+               ppermute=host(mesh.ppermute(x, mesh.model_group)),
+               ppermute_back=host(mesh.ppermute(x, mesh.model_group, shift=-1)),
+               all_to_all=host(mesh.all_to_all(x, 1, 2, mesh.model_group)),
+               reduce_scatter=host(mesh.reduce_scatter_model(x, 1)),
+               max=host(mesh.reduce_model(x, "max")),
+               broadcast=host(mesh.broadcast(x.clone(), 1, mesh.pipe_group)))
+    if mesh.pipe_index == 0:
+        mesh.send(x, 1, mesh.pipe_group)
+    else:
+        out["recv"] = host(mesh.recv(x.shape, x.dtype, 0, mesh.pipe_group))
+    out["counts"] = dict(mesh.counts)
+    return out
+
+
+def cuda_collectives_rank(rank: int):
+    """The collectives of ``_case_collectives`` on a pipe 2 x model 2 mesh
+    of a gloo world whose ranks' device is the card: on CUDA tensors (the
+    host route gloo takes) and on CPU tensors -> (card, cpu) results."""
+    from tpu_llm_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 2, pipe=2, device="cuda", ranks=[0, 1, 2, 3])
+    card = _case_collectives(mesh, {"device": mesh.device})
+    mesh.counts.clear()
+    return card, _case_collectives(mesh, {})
+
+
+def _case_ring_attention(mesh, kw):
+    from tpu_llm_torch.parallel.ring import ring_gqa_attention
+
+    q, k, v = (_shards(kw[n], mesh, 1) for n in ("q", "k", "v"))
+    B, Sl = k.shape[:2]
+    out = ring_gqa_attention(q, k, v.reshape(B, Sl, -1), mesh.model_index * Sl, mesh)
+    return out.numpy()
+
+
+def _case_ulysses_attention(mesh, kw):
+    from tpu_llm_torch.parallel.ulysses import ulysses_gqa_attention
+
+    q, k, v = (_shards(kw[n], mesh, 1) for n in ("q", "k", "v"))
+    B, Sl = k.shape[:2]
+    return ulysses_gqa_attention(q, k.reshape(B, Sl, -1), v, mesh).numpy()
+
+
+def _model(kw):
+    from tpu_llm_torch.config import LlamaConfig
+    from tpu_llm_torch.models.llama import params_from_numpy
+
+    return params_from_numpy(kw["tree"]), LlamaConfig(**kw["cfg"])
+
+
+def _case_prefill(mesh, kw):
+    """ring / ulysses / sequence-parallel prefill of kw["tokens"] (this rank's
+    batch rows); its hidden rows and cache planes."""
+    from tpu_llm_torch.parallel import ring, sequence, ulysses
+    from tpu_llm_torch.parallel.serving import shard_llama_params
+    from tpu_llm_torch.parallel.sharding import data_rows
+    from tpu_llm_torch.parallel.tp_decode import init_tp_cache
+
+    params, cfg = _model(kw)
+    tokens = torch.tensor(kw["tokens"])
+    B, T = tokens.shape
+    tokens = tokens[data_rows(mesh, B)]
+    if kw["how"] == "sp":
+        params = shard_llama_params(params, cfg, mesh)
+        cache = init_tp_cache(cfg, mesh, B, T, torch.float32)
+        fn = sequence.prefill_sequence_parallel
+    else:
+        cache = ring.init_cp_cache(cfg, mesh, B, T)
+        fn = ring.prefill_context_parallel if kw["how"] == "ring" else ulysses.prefill_ulysses
+    hidden, cache = fn(params, cfg, tokens, cache, mesh)
+    return dict(hidden=hidden.numpy(), cache=_planes(cache), counts=dict(mesh.counts))
+
+
+def _case_cp_decode(mesh, kw):
+    """decode_step_context_parallel over a fresh sequence-sharded cache,
+    fed kw["feed"] (a (B,) token row a step)."""
+    from tpu_llm_torch.parallel import ring
+    from tpu_llm_torch.parallel.sharding import data_rows
+
+    params, cfg = _model(kw)
+    B = len(kw["feed"][0])
+    rows = data_rows(mesh, B)
+    cache = ring.init_cp_cache(cfg, mesh, B, cfg.seq_len)
+    logits = []
+    for pos, tok in enumerate(kw["feed"]):
+        lg, cache = ring.decode_step_context_parallel(params, cfg, torch.tensor(tok)[rows],
+                                                      cache, pos, mesh)
+        logits.append(lg.numpy())
+    return dict(logits=logits, cache=_planes(cache), counts=dict(mesh.counts))
+
+
+def _case_ulysses_decode(mesh, kw):
+    """prefill_ulysses, reshard_cache_for_decode to kw["max_seq"], then the
+    greedy steps fed kw["feed"]."""
+    from tpu_llm_torch.parallel import ring, ulysses
+    from tpu_llm_torch.parallel.sharding import data_rows
+
+    params, cfg = _model(kw)
+    tokens = torch.tensor(kw["tokens"])
+    B, T = tokens.shape
+    rows = data_rows(mesh, B)
+    cache = ring.init_cp_cache(cfg, mesh, B, T)
+    hidden, cache = ulysses.prefill_ulysses(params, cfg, tokens[rows], cache, mesh)
+    cache = ulysses.reshard_cache_for_decode(cache, kw["max_seq"], mesh)
+    logits = []
+    for i, tok in enumerate(kw["feed"]):
+        lg, cache = ulysses.decode_ulysses(params, cfg, torch.tensor(tok)[rows], cache,
+                                           T + i, mesh)
+        logits.append(lg.numpy())
+    return dict(hidden=hidden.numpy(), logits=logits, cache=_planes(cache))
+
+
+def _case_pipeline(mesh, kw):
+    """prefill_pipelined of kw["tokens"] (if any), then the decode steps fed
+    kw["feed"] from position T (decode_step_pp_tp where mesh.model > 1)."""
+    from tpu_llm_torch.parallel import pipeline
+    from tpu_llm_torch.parallel.sharding import data_rows
+
+    params, cfg = _model(kw)
+    params = pipeline.stage_params(params, cfg, mesh)
+    B = len(kw["feed"][0])
+    rows = data_rows(mesh, B)
+    cache = pipeline.init_stage_cache(cfg, mesh, B, cfg.seq_len)
+    out, T = {}, 0
+    if kw.get("tokens") is not None:
+        tokens = torch.tensor(kw["tokens"])[rows]
+        T = tokens.shape[1]
+        hidden, cache = pipeline.prefill_pipelined(params, cfg, tokens, cache, mesh,
+                                                   microbatches=kw["microbatches"])
+        out["hidden"] = hidden.numpy()
+    step = pipeline.decode_step_pp_tp if mesh.model > 1 else pipeline.decode_step_pipelined
+    out["logits"] = []
+    for i, tok in enumerate(kw["feed"]):
+        lg, cache = step(params, cfg, torch.tensor(tok)[rows], cache, T + i, mesh)
+        out["logits"].append(lg.numpy())
+    out.update(cache=_planes(cache), counts=dict(mesh.counts))
+    return out
+
+
+def _case_smoke_phase(mesh, kw):
+    """chip_smoke.py phase seq_pipe_full_width's rank side on CPU tensors
+    (its cases make their own meshes over the same world)."""
+    import chip_smoke
+
+    return chip_smoke.seq_pipe_rank(mesh.rank, kw["npz"], kw["prompts"], device="cpu")
+
+
+SEQ_PIPE_CASES = dict(collectives=_case_collectives, ring_attention=_case_ring_attention,
+                      ulysses_attention=_case_ulysses_attention, prefill=_case_prefill,
+                      cp_decode=_case_cp_decode, ulysses_decode=_case_ulysses_decode,
+                      pipeline=_case_pipeline, smoke_phase=_case_smoke_phase)
+
+
+def seq_pipe_rank(rank: int, cases):
+    """``cases``: [(name, kind, (pipe, dp, tp), kwargs)] -> {name: (this rank's
+    (pipe, data, model) index, the case's result)}: each case on a fresh
+    mesh of pipe x dp x tp ranks, its function from SEQ_PIPE_CASES."""
+    from tpu_llm_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for name, kind, (pipe, dp, tp), kw in cases:
+        mesh = make_mesh(dp, tp, pipe=pipe, device="cpu",
+                         ranks=list(range(pipe * dp * tp)))
+        if not mesh.member:
+            continue
+        with torch.inference_mode():
+            out[name] = ((mesh.pipe_index, mesh.data_index, mesh.model_index),
+                         SEQ_PIPE_CASES[kind](mesh, kw))
+    return out

@@ -228,7 +228,8 @@ def _moe_ffn(cfg: LlamaConfig, x, lp, rs=None):
 
 
 def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
-           defer_kv: bool, update_fn=None, attn_fn=None, reduce_fn=None):
+           defer_kv: bool, update_fn=None, attn_fn=None, reduce_fn=None,
+           seq_gather=None):
     # ``reduce_fn`` (tensor parallelism): the sum of the ranks' partial
     # results of the row-parallel projections, applied after wo and after
     # w2 / the MoE combine (or once on a parallel block's sum), before the
@@ -238,9 +239,15 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
     # dtype the unsharded projection gives; the FFN megakernel (K7) writes
     # bf16 only, so on that path each rank's FFN partial is rounded to
     # bf16 before the f32 sum and rounded again after it.
-    B, T, _ = x.shape
+    # ``seq_gather`` (sequence parallelism): x holds this rank's rows of
+    # the sequence; each norm's output is gathered to every row before the
+    # column-parallel projections, and ``reduce_fn`` is then the
+    # reduce-scatter that hands each rank its rows of wo's and w2's sums.
     part = None if reduce_fn is None else torch.float32
     h, rs = _norm_folded(cfg, x, lp, "attn")
+    if seq_gather is not None:
+        h = seq_gather(h)
+    B, T, _ = h.shape
     if "wqkv" in lp:
         Q, KV = cfg.q_dim, cfg.kv_dim
         qkv = matmul(h, lp["wqkv"], row_scale=rs)
@@ -277,10 +284,12 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
     else:
         x = x + attn_out
         mlp_in, rs = _norm_folded(cfg, x, lp, "ffn")
+        if seq_gather is not None:
+            mlp_in = seq_gather(mlp_in)
     if cfg.n_experts:
         mlp_out = _moe_ffn(cfg, mlp_in, lp, rs)
         out_dt = mlp_out.dtype
-    elif _use_ffn_megakernel(cfg, x, lp):
+    elif _use_ffn_megakernel(cfg, mlp_in, lp):
         if rs is not None:       # the megakernel takes the weighted input
             mlp_in = (mlp_in.float() * rs).to(mlp_in.dtype)
         mlp_out = ffn_fused(mlp_in, lp["w13"], lp["w2"])
@@ -318,6 +327,41 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset, rope_cs,
     return x + mlp_out
 
 
+def embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, T) -> the embedded rows (B, T, E) (gemma's sqrt(dim)
+    scale applied, in f32)."""
+    x = params["tok_emb"][tokens.long()]
+    if cfg.emb_scale != 1.0:
+        x = (x.float() * cfg.emb_scale).to(x.dtype)
+    return x
+
+
+def positions_for(offset, B: int, T: int, device) -> torch.Tensor:
+    """The positions of T rows from ``offset`` (``forward``'s forms): (T,)
+    for an int, (B, T) for a device tensor."""
+    steps = torch.arange(T, dtype=torch.int32, device=device)
+    if torch.is_tensor(offset):
+        off = offset.to(device=device, dtype=torch.int32).reshape(-1)
+        return off.expand(B).reshape(B, 1) + steps
+    return offset + steps
+
+
+def run_layers(layers, cfg: LlamaConfig, x: torch.Tensor, kcs, vcs, positions, offset,
+               defer_kv: bool = False, update_fn=None, attn_fn=None, reduce_fn=None,
+               seq_gather=None) -> torch.Tensor:
+    """Run a list of layers (any contiguous range of ``params["layers"]``,
+    a pipeline stage's) on the hidden state x at ``positions`` over their
+    own cache planes ``kcs`` / ``vcs`` (one a layer, written in place);
+    returns x. The hooks are ``_block``'s. ``forward`` runs the whole stack
+    through it."""
+    rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_variant,
+                          cfg.rope_dims, cfg.rope_scaling)
+    for i, lp in enumerate(layers):
+        x = _block(cfg, x, lp, kcs[i], vcs[i], positions, offset, rope_cs, defer_kv,
+                   update_fn, attn_fn, reduce_fn, seq_gather)
+    return x
+
+
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache,
             offset, defer_kv: bool = False, update_fn=None,
             attn_fn=None, reduce_fn=None) -> Tuple[torch.Tensor, Cache]:
@@ -333,21 +377,10 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, cache: Cache
     B, T = tokens.shape
     if defer_kv and (T != 1 or isinstance(cache["k"][0], QuantKV)):
         raise ValueError("defer_kv is a decode (T == 1) path over float caches")
-    x = params["tok_emb"][tokens.long()]
-    if cfg.emb_scale != 1.0:
-        # gemma scales the embedding by sqrt(dim), in f32
-        x = (x.float() * cfg.emb_scale).to(x.dtype)
-    steps = torch.arange(T, dtype=torch.int32, device=x.device)
-    if torch.is_tensor(offset):
-        off = offset.to(device=x.device, dtype=torch.int32).reshape(-1)
-        positions = off.expand(B).reshape(B, 1) + steps
-    else:
-        positions = offset + steps
-    rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_variant,
-                          cfg.rope_dims, cfg.rope_scaling)
-    for i, lp in enumerate(params["layers"]):
-        x = _block(cfg, x, lp, cache["k"][i], cache["v"][i], positions, offset,
-                   rope_cs, defer_kv, update_fn, attn_fn, reduce_fn)
+    x = embed(params, cfg, tokens)
+    positions = positions_for(offset, B, T, x.device)
+    x = run_layers(params["layers"], cfg, x, cache["k"], cache["v"], positions, offset,
+                   defer_kv, update_fn, attn_fn, reduce_fn)
     return apply_final_norm(params, cfg, x), cache
 
 

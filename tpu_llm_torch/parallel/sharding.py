@@ -127,15 +127,25 @@ def shard_params(params, specs, mesh) -> Dict[str, Any]:
     return out
 
 
+def data_rows(mesh, batch: int) -> slice:
+    """The batch rows this rank holds: batch / dp of them by its data index
+    where the batch divides by dp, else all of them (a batch-1 state is
+    replicated over "data", as the JAX adapter runs it)."""
+    dp = mesh.data
+    if dp > 1 and batch >= dp and batch % dp == 0:
+        b = batch // dp
+        return slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+    return slice(0, batch)
+
+
 def llama_cache_spec(cfg: LlamaConfig, mesh, batch: int, max_seq: int,
                      quant: bool = False) -> Dict[str, tuple]:
     """The local dense-cache plane shapes: (batch / dp rows, S, Hkv / tp *
     D), and for the int8 cache the kv-head-major scales (B / dp, Hkv / tp,
-    S). Rows split only where the batch divides by dp (a batch-1 state is
-    replicated over "data", as the JAX adapter runs it)."""
-    dp, tp = mesh.data, mesh.model
-    b = batch // dp if dp > 1 and batch >= dp and batch % dp == 0 else batch
-    hkv = cfg.n_kv_heads // tp
+    S). Rows split as ``data_rows`` splits them."""
+    rows = data_rows(mesh, batch)
+    b = rows.stop - rows.start
+    hkv = cfg.n_kv_heads // mesh.model
     out = {"kv": (b, max_seq, hkv * cfg.head_dim)}
     if quant:
         out["scales"] = (b, hkv, max_seq)
