@@ -61,6 +61,7 @@ import torch
 
 from tpu_llm_torch.ops.kv_cache import QuantKV
 from tpu_llm_torch.ops.sampling import filtered_sample, greedy, select_tokens
+from tpu_llm_torch.runtime import trace
 from tpu_llm_torch.runtime.engine import ModelAdapter, _lookup_draft, _next_bucket
 
 
@@ -86,6 +87,7 @@ class Request:
     stop_token_ids: Optional[List[int]] = None
     # filled by the engine:
     rid: int = -1
+    submitted: Optional[float] = None      # submit()'s clock, only while tracing
     tokens: List[int] = dataclasses.field(default_factory=list)  # generated only
     token_logprobs: List[float] = dataclasses.field(default_factory=list)
     top_ids: List[List[int]] = dataclasses.field(default_factory=list)
@@ -250,6 +252,12 @@ def _finish_fetch(fetch) -> list:
     return [None if h is None else h.tolist() for h in hosts]
 
 
+def _stream_drained(device: torch.device) -> Optional[bool]:
+    """Whether the card has finished all the work queued on its stream so
+    far (the ``dispatch`` span's ``drained``); None off the card."""
+    return torch.cuda.current_stream(device).query() if device.type == "cuda" else None
+
+
 def _map_state(state, fn):
     """Apply ``fn`` to every tensor leaf of a dict / list / QuantKV state
     (a QuantKV's planes and scales share the batch axis 0)."""
@@ -398,6 +406,7 @@ class BatchEngine:
         n_bos = 1 if self.bos_id >= 0 else 0
         if len(req.prompt) + n_bos + req.max_new > self.max_seq:
             raise ValueError("prompt (+BOS) + max_new exceeds max_seq")
+        req.submitted = trace.now()
         self._queue.append(req)
         return req
 
@@ -435,18 +444,20 @@ class BatchEngine:
         for idx, slot in enumerate(self.slots):
             if slot.free and self._queue:
                 req = self._queue.pop(0)
-                slot.req = req
-                slot.generator = self._new_generator(req.seed)
-                bos = [self.bos_id] if self.bos_id >= 0 else []
-                input_ids = bos + req.prompt
-                n_in = len(input_ids)
-                toks = np.zeros((1, min(_next_bucket(n_in), self.max_seq)), np.int64)
-                toks[0, :n_in] = input_ids
-                toks = to_device(toks, torch.long, self.device)
-                logits = self._prefill(idx, toks, n_in - 1)
-                if self._draft is not None:
-                    self._draft_prefill(idx, toks, n_in - 1)
-                self._seat(idx, slot, logits, input_ids)
+                with trace.span("prefill", req.rid) as sp:
+                    trace.add("queued", req.submitted, sp.t0, req.rid)
+                    slot.req = req
+                    slot.generator = self._new_generator(req.seed)
+                    bos = [self.bos_id] if self.bos_id >= 0 else []
+                    input_ids = bos + req.prompt
+                    n_in = len(input_ids)
+                    toks = np.zeros((1, min(_next_bucket(n_in), self.max_seq)), np.int64)
+                    toks[0, :n_in] = input_ids
+                    toks = to_device(toks, torch.long, self.device)
+                    logits = self._prefill(idx, toks, n_in - 1)
+                    if self._draft is not None:
+                        self._draft_prefill(idx, toks, n_in - 1)
+                    self._seat(idx, slot, logits, input_ids)
 
     def _record(self, slot: _Slot, tok: int, lp: Optional[float] = None, top=None):
         """Append a fetched token to the slot's request (with its logprob,
@@ -556,7 +567,8 @@ class BatchEngine:
         if inflight is None:
             return
         fetch, metas = inflight
-        toks, lps, vals, ids = _finish_fetch(fetch)
+        with trace.span("fetch_wait"):
+            toks, lps, vals, ids = _finish_fetch(fetch)
         for idx, req in metas:
             slot = self.slots[idx]
             if slot.req is not req or req.done:
@@ -607,15 +619,16 @@ class BatchEngine:
             offsets[i] = self.slots[i].pos
             temps[i] = req.temperature
             gens[i] = self.slots[i].generator
-        logits, chain, sampled0 = self._verify(
-            to_device(toks, torch.long, self.device),
-            to_device(offsets, torch.int32, self.device), temps, gens,
-            self._filter_vecs(live))
-        lps = s0lp = None
-        if any(_wants_lp(r) for _, r in live):
-            lps = _token_logprob(logits, chain)
-            s0lp = _token_logprob(logits[:, 0], sampled0)
-        top = _top_rows(logits) if self._want_top(live) else (None, None)
+        with trace.span("dispatch"):
+            logits, chain, sampled0 = self._verify(
+                to_device(toks, torch.long, self.device),
+                to_device(offsets, torch.int32, self.device), temps, gens,
+                self._filter_vecs(live))
+            lps = s0lp = None
+            if any(_wants_lp(r) for _, r in live):
+                lps = _token_logprob(logits, chain)
+                s0lp = _token_logprob(logits[:, 0], sampled0)
+            top = _top_rows(logits) if self._want_top(live) else (None, None)
         # one host read for all of them
         chain, sampled0, lps, s0lp, vals, ids = _finish_fetch(
             _start_fetch(chain, sampled0, lps, s0lp, *top))
@@ -654,7 +667,15 @@ class BatchEngine:
         """Admit (prefill), dispatch one batched decode, then read the
         PREVIOUS step's tokens. Returns the number of live slots. With
         speculation, a step that can verify drafts runs ``_step_spec``."""
+        with trace.span("step"):
+            return self._step()
+
+    def _step(self) -> int:
+        queued = len(self._queue)
         self._admit()
+        # a prefill's first-token read, or the read of the pipelined step,
+        # drains the stream before the dispatch: ``drained`` is left out
+        synced = len(self._queue) < queued or self.spec_k
         if self.spec_k:
             # read the pipelined step BEFORE taking the live slots: its
             # bookkeeping may retire one, and the spec step drafts from
@@ -673,26 +694,30 @@ class BatchEngine:
                 _penalized(r) or r.logit_bias for _, r in live) and all(
                 self.slots[i].pos + self.spec_k + 1 <= self.max_seq for i, _ in live):
             return self._step_spec(live)
-        offsets = np.zeros((self.batch,), np.int32)
-        temps = [0.0] * self.batch
-        gens: List[Optional[torch.Generator]] = [None] * self.batch
-        for i, slot in enumerate(self.slots):
-            if slot.free:
-                continue
-            offsets[i] = min(slot.pos, self.max_seq - 1)
-            temps[i] = slot.req.temperature
-            gens[i] = slot.generator
-            slot.pos += 1
-        filters = self._filter_vecs(live)
-        counts, knobs = self._penalty_args(live)
-        biases = self._bias_args(live)
-        logits = self._decode(to_device(offsets, torch.int32, self.device))
-        self._token_dev = _sample_step(logits, temps, gens, filters, counts, knobs, biases)
-        lp = (_token_logprob(logits, self._token_dev)
-              if any(_wants_lp(r) for _, r in live) else None)
-        top = _top_rows(logits) if self._want_top(live) else (None, None)
-        prev = self._inflight
-        self._inflight = (_start_fetch(self._token_dev, lp, *top), live)
+        with trace.span("dispatch") as sp:
+            if trace.enabled() and not synced:
+                sp.note("drained", _stream_drained(self.device))
+            offsets = np.zeros((self.batch,), np.int32)
+            temps = [0.0] * self.batch
+            gens: List[Optional[torch.Generator]] = [None] * self.batch
+            for i, slot in enumerate(self.slots):
+                if slot.free:
+                    continue
+                offsets[i] = min(slot.pos, self.max_seq - 1)
+                temps[i] = slot.req.temperature
+                gens[i] = slot.generator
+                slot.pos += 1
+            filters = self._filter_vecs(live)
+            counts, knobs = self._penalty_args(live)
+            biases = self._bias_args(live)
+            logits = self._decode(to_device(offsets, torch.int32, self.device))
+            self._token_dev = _sample_step(logits, temps, gens, filters, counts, knobs,
+                                           biases)
+            lp = (_token_logprob(logits, self._token_dev)
+                  if any(_wants_lp(r) for _, r in live) else None)
+            top = _top_rows(logits) if self._want_top(live) else (None, None)
+            prev = self._inflight
+            self._inflight = (_start_fetch(self._token_dev, lp, *top), live)
         self._collect(prev)
         return len(live)
 

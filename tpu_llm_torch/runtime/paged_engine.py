@@ -45,6 +45,7 @@ import torch
 from tpu_llm_torch.ops.paged_kv import (BlockAllocator, PagedKV, PrefixCache,
                                         paged_gqa_attention, paged_update_tokens,
                                         scale_pool_width, scale_rows_per_block)
+from tpu_llm_torch.runtime import trace
 from tpu_llm_torch.runtime.batching import BatchEngine, Request, _Slot, to_device
 from tpu_llm_torch.runtime.engine import _next_bucket
 
@@ -202,64 +203,67 @@ class PagedEngine(BatchEngine):
             if not (slot.free and self._queue):
                 continue
             req = self._queue[0]
-            bos = [self.bos_id] if self.bos_id >= 0 else []
-            input_ids = bos + req.prompt
-            n_in = len(input_ids)
-            bs = self.block_size
-            # hash the prompt's block chain once (match and insert share it)
-            digs = PrefixCache.digests(input_ids, bs) if self.prefix is not None else []
-            shared = (self.prefix.match(input_ids, bs, digests=digs)
-                      if self.prefix is not None else [])
-            n_shared = len(shared) * bs
-            n_tail_blocks = math.ceil((n_in - n_shared) / bs)
-            # all-or-nothing: tail blocks now + a reservation for the
-            # worst-case growth (last real write at n_in + max_new - 2)
-            span = n_in + req.max_new - 2
-            growth = span // bs + 1 - len(shared) - n_tail_blocks
-            try:
-                owned = self.allocator.alloc(n_tail_blocks)
+            with trace.span("prefill", req.rid) as sp:
+                bos = [self.bos_id] if self.bos_id >= 0 else []
+                input_ids = bos + req.prompt
+                n_in = len(input_ids)
+                bs = self.block_size
+                # hash the prompt's block chain once (match and insert share it)
+                digs = PrefixCache.digests(input_ids, bs) if self.prefix is not None else []
+                shared = (self.prefix.match(input_ids, bs, digests=digs)
+                          if self.prefix is not None else [])
+                n_shared = len(shared) * bs
+                n_tail_blocks = math.ceil((n_in - n_shared) / bs)
+                # all-or-nothing: tail blocks now + a reservation for the
+                # worst-case growth (last real write at n_in + max_new - 2)
+                span = n_in + req.max_new - 2
+                growth = span // bs + 1 - len(shared) - n_tail_blocks
                 try:
-                    self.allocator.reserve(growth)
+                    owned = self.allocator.alloc(n_tail_blocks)
+                    try:
+                        self.allocator.reserve(growth)
+                    except MemoryError:
+                        self.allocator.release(owned)
+                        raise
                 except MemoryError:
-                    self.allocator.release(owned)
-                    raise
-            except MemoryError:
-                # pool pressure: give the refs back and wait for running
-                # requests to free their blocks
-                for b in shared:
-                    self.allocator.decref(b)
-                if self.n_active == 0:
-                    raise MemoryError(
-                        f"request needs {n_tail_blocks}+{growth} blocks "
-                        f"(+{len(shared)} shared) but the pool can never serve "
-                        f"it (free={self.allocator.n_free})")
-                return
-            self._slot_reserved[idx] = growth
-            self._slot_span[idx] = span
-            self._queue.pop(0)
-            slot.req = req
-            slot.generator = self._new_generator(req.seed)
-            blocks = shared + owned
-            self._slot_blocks[idx] = blocks
-            self._set_slot_meta(idx, blocks, n_shared)
+                    # pool pressure: give the refs back and wait for running
+                    # requests to free their blocks
+                    for b in shared:
+                        self.allocator.decref(b)
+                    sp.drop()
+                    if self.n_active == 0:
+                        raise MemoryError(
+                            f"request needs {n_tail_blocks}+{growth} blocks "
+                            f"(+{len(shared)} shared) but the pool can never serve "
+                            f"it (free={self.allocator.n_free})")
+                    return
+                trace.add("queued", req.submitted, sp.t0, req.rid)
+                self._slot_reserved[idx] = growth
+                self._slot_span[idx] = span
+                self._queue.pop(0)
+                slot.req = req
+                slot.generator = self._new_generator(req.seed)
+                blocks = shared + owned
+                self._slot_blocks[idx] = blocks
+                self._set_slot_meta(idx, blocks, n_shared)
 
-            tail, off = input_ids[n_shared:], n_shared
-            ck = self.prefill_chunk
-            while ck is not None and len(tail) > ck:
-                self._prefill_part(idx, to_device([tail[:ck]], torch.long, self.device),
-                                   off)
-                tail, off = tail[ck:], off + ck
-            toks = np.zeros((1, min(_next_bucket(len(tail)), self.max_seq)), np.int64)
-            toks[0, :len(tail)] = tail
-            logits = self._prefill_tail(idx, to_device(toks, torch.long, self.device),
-                                        off, len(tail) - 1)
-            if self._draft is not None:      # the draft prefills the whole prompt
-                dtoks = np.zeros((1, min(_next_bucket(n_in), self.max_seq)), np.int64)
-                dtoks[0, :n_in] = input_ids
-                self._draft_prefill(idx, to_device(dtoks, torch.long, self.device), n_in - 1)
-            if self.prefix is not None:
-                self.prefix.insert(input_ids, bs, blocks, digests=digs)
-            self._seat(idx, slot, logits, input_ids)
+                tail, off = input_ids[n_shared:], n_shared
+                ck = self.prefill_chunk
+                while ck is not None and len(tail) > ck:
+                    self._prefill_part(idx, to_device([tail[:ck]], torch.long, self.device),
+                                       off)
+                    tail, off = tail[ck:], off + ck
+                toks = np.zeros((1, min(_next_bucket(len(tail)), self.max_seq)), np.int64)
+                toks[0, :len(tail)] = tail
+                logits = self._prefill_tail(idx, to_device(toks, torch.long, self.device),
+                                            off, len(tail) - 1)
+                if self._draft is not None:      # the draft prefills the whole prompt
+                    dtoks = np.zeros((1, min(_next_bucket(n_in), self.max_seq)), np.int64)
+                    dtoks[0, :n_in] = input_ids
+                    self._draft_prefill(idx, to_device(dtoks, torch.long, self.device), n_in - 1)
+                if self.prefix is not None:
+                    self.prefix.insert(input_ids, bs, blocks, digests=digs)
+                self._seat(idx, slot, logits, input_ids)
 
     def _pre_dispatch(self, live) -> None:
         """Map a fresh block for every slot whose next write crosses into
