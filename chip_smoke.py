@@ -59,9 +59,14 @@ Phases, one JSON line each:
    (`bs64_case`). The other llama-family shapes (check_family_shapes): K1
    through a Mixtral-8x7B expert slice picked by a device index (w1e and
    w2e, `mixtral_w*e_slice_case`, the slice's copy timed beside it) and at
-   Qwen2-7B's wqkv with f32 and bf16 rows (`qwen2_wqkv*_case`); K2, K3,
-   K4 and K5 at phi-2's head width 80 (`phi2_d80_case`, f32 q); K2 at
-   Qwen2-7B's 28/4 heads (`qwen2_g7_case`).
+   Qwen2-7B's five projections with f32 and bf16 rows (`qwen2_*_case`,
+   the decode body); K2, K3, K4 and K5 at phi-2's head width 80
+   (`phi2_d80_case`, f32 q); K2 at Qwen2-7B's 28/4 heads
+   (`qwen2_g7_case`). K1's row sweep (`k1_row_sweep` lines, then
+   `k1_rows`): both bodies by name at Qwen2-7B's projections, rows 1-3,
+   f32 and bf16 x, timed in a replayed graph over weights past L2 and
+   alone after an L2 flush, and the largest row count at which the decode
+   body is faster everywhere in the graph timing, beside DECODE_ROWS.
 3. cli — the port's `llm` CLI on tiny GGUFs written here with the port's
    own writer (f32 and Q4_0 with --dtype f32 and native; Q4_K and Q6_K
    native; Q4_K native --fold-norms; Q4_0 native with
@@ -621,9 +626,69 @@ def check_kernels(torch, timer):
     check_serving_shapes(torch, timer, g, compare, record)
     check_paged_kernels(torch, timer, g, compare, record)
     check_family_shapes(torch, timer, g, compare, record)
+    k1_row_sweep(torch, timer, g)
     check_tp_shapes(torch, timer, g, compare, record)
     check_seq_pipe_shapes(torch, timer, g, compare, record)
     return cases
+
+
+K1_SWEEP_ROWS = range(1, 4)
+# distinct copies of each Qwen2-7B projection, > 256 MB a set (past L2)
+K1_SWEEP_COPIES = {"wqkv": 28, "wo": 36, "w13": 4, "w2": 7, "wcls": 2}
+
+
+def graph_call_ms(torch, fn, weights, replays: int = 10) -> float:
+    """Mean ms of ``fn(w)`` over ``weights`` (distinct copies, past L2) when
+    the calls are captured in one CUDA graph and replayed: the time a
+    decode graph sees (back to back, the weights cold, no host)."""
+    fns = lambda: [fn(w) for w in weights]  # noqa: E731
+    fns()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fns()
+    graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * len(weights))
+
+
+def k1_row_sweep(torch, timer, g):
+    """K1's two bodies by name (qmatmul_body) at Qwen2-7B's five projections
+    (q4_0, f32 planes), f32 and bf16 x, rows 1-3 (the decode body to its
+    2): one `k1_row_sweep` line a case with each body's time as a decode
+    graph sees it (graph_call_ms, `*_graph_ms`) and alone after an L2 flush
+    (the Timer, `*_ms`), and the bound; then one `k1_rows` line with the
+    largest row count at which the decode body is faster at every
+    projection and x dtype in the graph timing, beside DECODE_ROWS."""
+    from tpu_llm_torch.quant import qmatmul as QM
+
+    wins = {r: True for r in K1_SWEEP_ROWS if r <= QM._DECODE_MAX_ROWS}
+    for wname, (K, N) in QWEN2_SHAPES.items():
+        ws = [random_qtensor(torch, g, "q4_0", K, N) for _ in range(K1_SWEEP_COPIES[wname])]
+        for xdt in (torch.float32, torch.bfloat16):
+            for rows in K1_SWEEP_ROWS:
+                x = torch.randn((rows, K), generator=g, device="cuda").to(xdt)
+                row = dict(weight=f"qwen2_{wname}", x=str(xdt).replace("torch.", ""),
+                           rows=rows, K=K, N=N,
+                           bound_ms=bound(ws[0].nbytes + nbytes(x) + rows * N * x.element_size(),
+                                          2.0 * rows * K * N, "bf16")[0])
+                for body, decode in (("tc", False), ("decode", True)):
+                    if decode and rows not in wins:
+                        continue
+                    row[f"{body}_graph_ms"] = graph_call_ms(
+                        torch, lambda w: QM.qmatmul_body(x, w, decode), ws)
+                    row[f"{body}_ms"] = timer.ms(lambda: QM.qmatmul_body(x, ws[0], decode))
+                if rows in wins:
+                    wins[rows] &= row["decode_graph_ms"] < row["tc_graph_ms"]
+                emit("k1_row_sweep", **row)
+        del ws
+    faster = [r for r in sorted(wins) if all(wins[q] for q in range(1, r + 1))]
+    emit("k1_rows", decode_faster_to=max(faster, default=0), DECODE_ROWS=QM.DECODE_ROWS)
 
 
 # a TinyLlama rank's projection shards at tp 2 (K, N)
@@ -1002,13 +1067,19 @@ def check_paged_kernels(torch, timer, g, compare, record, heads=(32, 4),
                moved, 4.0 * H * D * rows_read, "f32")
 
 
+# Qwen2-7B's projections (K, N), each a layer's and the classifier
+QWEN2_SHAPES = {"wqkv": (3584, 4608), "wo": (3584, 3584), "w13": (3584, 37888),
+                "w2": (18944, 3584), "wcls": (3584, 152064)}
+
+
 def check_family_shapes(torch, timer, g, compare, record):
     """The shapes the other llama-family models give the kernels. K1: one
     row through an expert slice picked by a device index out of stacked
     Mixtral-8x7B planes (w1e 4096x14336, w2e 14336x4096, 8 experts, the
-    copy _expert_slice makes timed beside it), and Qwen2-7B's wqkv
-    3584x4608 with f32 rows (its f32 biases promote the activations to f32,
-    as in the JAX package) and bf16 rows. Head width 80 (phi-2: 32 heads, one
+    copy _expert_slice makes timed beside it), and Qwen2-7B's five
+    projections (QWEN2_SHAPES) with f32 rows (its f32 biases promote the
+    activations to f32, as in the JAX package) and bf16 rows: K1's decode
+    body. Head width 80 (phi-2: 32 heads, one
     q head a kv head), f32 q as phi-2's biases leave it: K2 and K3 over the
     `llm` CLI's f32 (1, 2048, 2560) cache at position 1000, K4 with a
     512-token prompt over it, K5 over bf16 pools of 16-row blocks at batch
@@ -1024,7 +1095,8 @@ def check_family_shapes(torch, timer, g, compare, record):
     dev = "cuda"
     e = torch.tensor(5, device=dev)
     for wname, (K, N) in (("mixtral_w1e_slice", (4096, 14336)),
-                          ("mixtral_w2e_slice", (14336, 4096)), ("qwen2_wqkv", (3584, 4608))):
+                          ("mixtral_w2e_slice", (14336, 4096)),
+                          *((f"qwen2_{n}", kn) for n, kn in QWEN2_SHAPES.items())):
         for xdt in ((torch.bfloat16,) if wname.startswith("mixtral")
                     else (torch.float32, torch.bfloat16)):
             info = dict(weight=wname, kind="q4_0", planes="f32", rows=1, K=K, N=N,
@@ -4529,9 +4601,10 @@ EXTRA_CASES = {"flash_gqa_attention": {"f32_q_case": dict(T=512, cache="f32", q=
                               for n in ("wqkv", "wo", "w13", "w2", "wcls")},
                            "mixtral_w1e_slice_case": dict(weight="mixtral_w1e_slice"),
                            "mixtral_w2e_slice_case": dict(weight="mixtral_w2e_slice"),
-                           "qwen2_wqkv_case": dict(weight="qwen2_wqkv", x="float32"),
-                           "qwen2_wqkv_bf16_case": dict(weight="qwen2_wqkv",
-                                                        x="bfloat16")},
+                           **{f"qwen2_{n}_case": dict(weight=f"qwen2_{n}", x="float32")
+                              for n in QWEN2_SHAPES},
+                           **{f"qwen2_{n}_bf16_case": dict(weight=f"qwen2_{n}", x="bfloat16")
+                              for n in QWEN2_SHAPES}},
                "flash_decode_attention": {"llama2_7b_case": dict(D=128, Hkv=32),
                                           "phi2_d80_case": dict(D=80),
                                           "qwen2_g7_case": dict(H=28, Hkv=4)},

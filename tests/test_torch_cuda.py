@@ -913,7 +913,8 @@ def test_captured_step_counts_launches_per_replay(gen):
     cap = CapturedStep(step, "cuda", warmup=1)
     # the warm-up step launched 2 layers x 4 projections + wcls, 2 attentions
     assert (qmatmul.launches - q0, FA.flash_decode_attention.launches - a0) == (9, 2)
-    assert cap.per_replay == {"qmatmul": 9, "flash_decode_attention": 2}
+    # tiny q4_0 rows take K1's decode body: qmatmul.decode counts it too
+    assert cap.per_replay == {"qmatmul": 9, "qmatmul.decode": 9, "flash_decode_attention": 2}
     for _ in range(5):
         cap()
     assert (qmatmul.launches - q0, FA.flash_decode_attention.launches - a0) == (54, 12)
@@ -972,8 +973,9 @@ def test_qmatmul_tc_rows_and_edges(gen, kind, planes, K, N, xdt):
     launch, N ragged (1, 33, 130: plain loads) or 32000; per-32 and per-16
     nibble, qh and int8 kinds, with mins and without; against the twin and
     the blocked twin (the kernel's own order), row_scale on the 5-row and
-    512-row calls."""
-    from tpu_llm_torch.quant.qmatmul import qmatmul_blocked_plain
+    512-row calls. The tensor-core body by name (qmatmul_body): at few rows
+    qmatmul gives the nibble kinds the decode body."""
+    from tpu_llm_torch.quant.qmatmul import qmatmul_blocked_plain, qmatmul_body
 
     if kind == "q4_0i4":
         w = _int4_weight(gen, "q4_0", K, N, planes)
@@ -985,33 +987,136 @@ def test_qmatmul_tc_rows_and_edges(gen, kind, planes, K, N, xdt):
         x = torch.randn((rows, K), generator=gen, device="cuda").to(xdt)
         rs = (1 + 0.2 * torch.randn(K, generator=gen, device="cuda")) if rows in (5, 512) \
             else None
-        launches = qmatmul.launches
-        got = qmatmul(x, w, row_scale=rs)
+        launches, decoded = qmatmul.launches, qmatmul.decode_launches
+        got = qmatmul_body(x, w, False, row_scale=rs)
         assert qmatmul.launches == launches + 1 and got.dtype == xdt
+        assert qmatmul.decode_launches == decoded
         _close(got, qmatmul_plain(x, w, row_scale=rs), bf16)
         _close(got, qmatmul_blocked_plain(x, w, row_scale=rs), bf16)
-        again = qmatmul(x, w, row_scale=rs)        # the tile counters are reset
+        again = qmatmul_body(x, w, False, row_scale=rs)    # the tile counters are reset
         assert torch.equal(again, got)
 
 
 def test_qmatmul_replays_in_a_graph(gen):
-    """K1 with a K split (w13 width, 1 row) captured in a CUDA graph and
-    replayed on new x: equal to the eager call each time, and the tile
-    counters back at 0."""
+    """K1's tensor-core body with a K split (w13 width, 1 row, by name)
+    captured in a CUDA graph and replayed on new x: equal to the eager call
+    each time, and the tile counters back at 0."""
     from chip_smoke import random_qtensor
     from tpu_llm_torch.quant import qmatmul as QM
 
     w = random_qtensor(torch, gen, "q4_0", 2048, 11264, "bf16")
     x = torch.randn((1, 2048), generator=gen, device="cuda").bfloat16()
     assert QM.k_split(1, 2048, 11264, QM._sm_count(x.device))[0] > 1
-    qmatmul(x, w)                                    # builds; makes the counters
+    QM.qmatmul_body(x, w, False)                     # builds; makes the counters
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = qmatmul(x, w)
+        out = QM.qmatmul_body(x, w, False)
     for _ in range(3):
         x.copy_(torch.randn((1, 2048), generator=gen, device="cuda"))
         graph.replay()
+        want = QM.qmatmul_body(x, w, False)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert QM._tile_counters[x.device].count_nonzero().item() == 0
+
+
+# -- K1's decode body: rows 1 .. DECODE_ROWS of a nibble-packed kind ------------
+
+# Qwen2-7B's projections, then ragged N (plain loads) and planes off
+# 16-byte boundaries (plain loads: values at 4 bytes, bf16 planes at 8)
+DECODE_SHAPES = {"wqkv": (3584, 4608), "wo": (3584, 3584), "w13": (3584, 37888),
+                 "w2": (18944, 3584), "wcls": (3584, 152064), "ragged": (96, 33),
+                 "ragged_130": (256, 130), "unaligned": (512, 4096)}
+# (source kind, planes): per-32 and per-16 blocks, mins, f32 / bf16 /
+# f16-bit planes; q4_0i4 is to_int4 of the source, the --scan program's
+DECODE_WEIGHTS = [("q4_0", "f32"), ("q4_0", "bf16"), ("q4_0i4<q4_0", "int16"),
+                  ("q4_1", "f32"), ("q4_1", "bf16"), ("q2_kp", "f32"), ("q2_kp", "bf16"),
+                  ("q3_kp", "f32"), ("q4_0i4<q4_1", "bf16"), ("q4_0i4<q2_kp", "int16"),
+                  ("q4_0i4<q3_kp", "f32")]
+
+
+def _decode_weight(g, src, planes, K, N, unaligned=False):
+    from chip_smoke import random_qtensor
+
+    w = _int4_weight(g, src.split("<")[1], K, N, planes) if "<" in src else \
+        random_qtensor(torch, g, src, K, N, planes)
+    if unaligned:
+        def shift(t, by):
+            buf = torch.zeros(t.numel() + by, dtype=t.dtype, device=t.device)
+            out = buf[by:].view(t.shape)
+            out.copy_(t)
+            return out
+        # 4 bytes past a 16-byte boundary; 2-byte planes 8 bytes (f32 planes
+        # must sit on 16)
+        w = QTensor(shift(w.q, 4), w.scales if w.scales.dtype == torch.float32
+                    else shift(w.scales, 4), w.kind,
+                    None if w.mins is None or w.mins.dtype == torch.float32
+                    else shift(w.mins, 4))
+    return w
+
+
+# Qwen2-7B's wqkv, wo, w2 and wcls run the q4_0 weights and q4_0i4's int16
+# planes; every weight runs w13 and the small shapes
+DECODE_CASES = [(src, planes, shape) for shape in DECODE_SHAPES
+                for src, planes in DECODE_WEIGHTS
+                if shape not in ("wqkv", "wo", "w2", "wcls") or src in ("q4_0", "q4_0i4<q4_0")]
+
+
+@pytest.mark.parametrize("src,planes,shape", DECODE_CASES,
+                         ids=[f"{s}-{p}-{sh}" for s, p, sh in DECODE_CASES])
+def test_qmatmul_decode_body_matches_plain(gen, src, planes, shape):
+    """The decode body at rows 1 and DECODE_ROWS, and DECODE_ROWS + 1 on the
+    tensor-core body, against the plain twin: f32 and bf16 x, x's dtype and
+    f32 out, row_scale on and off. qmatmul.launches counts every call,
+    qmatmul.decode_launches the decode body's; a second launch is
+    bit-identical (the cross-CTA merge sums in a fixed order)."""
+    from tpu_llm_torch.quant import qmatmul as QM
+
+    K, N = DECODE_SHAPES[shape]
+    w = _decode_weight(gen, src, planes, K, N, unaligned=shape == "unaligned")
+    R = QM.DECODE_ROWS
+    for rows in (1, R, R + 1):
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn((rows, K), generator=gen, device="cuda").to(xdt)
+            for with_rs in (False, True):
+                rs = (1 + 0.2 * torch.randn(K, generator=gen, device="cuda")) if with_rs \
+                    else None
+                want = qmatmul_plain(x, w, torch.float32, rs)
+                for out_dtype in (None, torch.float32):
+                    launches, decoded = qmatmul.launches, qmatmul.decode_launches
+                    got = qmatmul(x, w, out_dtype=out_dtype, row_scale=rs)
+                    assert qmatmul.launches == launches + 1
+                    assert qmatmul.decode_launches == decoded + (rows <= R)
+                    assert got.dtype == (out_dtype or xdt)
+                    _close(got, want.to(got.dtype), got.dtype == torch.bfloat16)
+                    assert torch.equal(qmatmul(x, w, out_dtype=out_dtype, row_scale=rs), got)
+    assert QM._tile_counters[x.device].count_nonzero().item() == 0
+
+
+def test_qmatmul_decode_replays_in_a_graph(gen):
+    """The decode body at Qwen2-7B's wqkv (one f32 row: every tile split
+    across CTAs and merged in the launch) captured in a CUDA graph and
+    replayed on new x: equal to the eager call each time, the tile counters
+    back at 0, the decode count advanced by CapturedStep's replays."""
+    from chip_smoke import random_qtensor
+    from tpu_llm_torch.quant import qmatmul as QM
+    from tpu_llm_torch.runtime.graphs import CapturedStep
+
+    K, N = 3584, 4608
+    w = random_qtensor(torch, gen, "q4_0", K, N, "f32")
+    x = torch.randn((1, K), generator=gen, device="cuda")
+    assert QM.takes_decode(1, K, N, 1, QM._sm_count(x.device))
+    assert any(a > 0 or b < K // 32 for segs in QM.decode_ranges(1, K, N, QM._sm_count(
+        x.device)) for _, a, b in segs)
+    out = torch.empty((1, N), device="cuda")
+    cap = CapturedStep(lambda: out.copy_(qmatmul(x, w)), "cuda")
+    assert cap.per_replay == {"qmatmul": 1, "qmatmul.decode": 1}
+    for _ in range(3):
+        x.copy_(torch.randn((1, K), generator=gen, device="cuda"))
+        decoded = qmatmul.decode_launches
+        cap()
+        assert qmatmul.decode_launches == decoded + 1
         want = qmatmul(x, w)
         torch.cuda.synchronize()
         assert torch.equal(out, want)

@@ -262,3 +262,89 @@ def test_row_tiles_round_up(rows, tile):
     ks, kbps = tqm.k_split(rows, 2048, 11264, 132)
     assert (ks - 1) * kbps < 64 <= ks * kbps
     assert kbps >= min(64, tqm._MIN_BLOCKS_PER_SPLIT)
+
+
+# -- the decode body: which calls take it, and its grid --------------------------
+
+# Qwen2-7B's projections (K, N): wqkv, wo, w13, w2, the classifier
+QWEN2_SHAPES = {"wqkv": (3584, 4608), "wo": (3584, 3584), "w13": (3584, 37888),
+                "w2": (18944, 3584), "wcls": (3584, 152064)}
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("kind", sorted(tqm._KIND_CODE))
+@pytest.mark.parametrize("weight", sorted(QWEN2_SHAPES))
+def test_decode_body_takes_nibble_kinds_up_to_decode_rows(kind, weight):
+    """The nibble-packed kinds (pack 1) take the decode body at rows 1 ..
+    DECODE_ROWS at every Qwen2-7B projection; rows above it, the int8
+    kinds and q6_kp (qh plane) take the tensor-core body."""
+    K, N = QWEN2_SHAPES[weight]
+    pack = tqm._KIND_CODE[kind][0]
+    for rows in range(1, tqm.DECODE_ROWS + 1):
+        assert tqm.takes_decode(rows, K, N, pack, H100_SMS) == (pack == 1)
+    for rows in (tqm.DECODE_ROWS + 1, 16, 17, 512):
+        assert not tqm.takes_decode(rows, K, N, pack, H100_SMS)
+
+
+@pytest.mark.parametrize("rows,K,N,want", [
+    (9, 3584, 37888, ((2, 56), 16)), (16, 3584, 4608, ((14, 8), 16)),
+    (17, 3584, 18944, ((4, 28), 64)), (512, 3584, 37888, ((1, 112), 64)),
+    (1, 3584, 4608, ((14, 8), 16)), (8, 18944, 3584, ((19, 32), 16))])
+def test_tensor_core_grid_is_unchanged(rows, K, N, want):
+    """The tensor-core body's K split and row tile read what they read
+    before the decode body: shapes only, the same numbers."""
+    assert (tqm.k_split(rows, K, N, H100_SMS), tqm.row_tile(rows)) == want
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4])
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+@pytest.mark.parametrize("weight", [*sorted(QWEN2_SHAPES), "ragged", "one_block"])
+def test_decode_grid_covers_every_block_once(weight, sms, rows):
+    """decode_ranges (the kernel's split, in Python) covers every
+    (128-column tile, 32-row block) unit exactly once; at least 7/8 of the
+    card's CTA slots are used, and a whole number of CTAs a tile keeps each
+    CTA in one tile; each CTA's share is U / G rounded down or up, and CTAs
+    dealt round-robin to the SMs leave no SM more than one CTA's share
+    (and a unit of rounding) above another; the CTAs the kernel's
+    merge counts for a tile, and the partial slot it reads of each, are
+    the ones that hold that tile's units; x' fits the CTA's slots and its
+    shared memory."""
+    K, N = {"ragged": (96, 33), "one_block": (32, 1)}.get(weight) or QWEN2_SHAPES[weight]
+    nkb, nt = K // 32, -(-N // 128)
+    units = nt * nkb
+    ctas, nslot = tqm.decode_grid(rows, K, N, sms)
+    slots = sms * tqm.decode_ctas_per_sm(rows)
+    assert 7 * min(units, slots) <= 8 * ctas <= 8 * min(units, slots)
+    ranges = tqm.decode_ranges(rows, K, N, sms)
+    if ctas % nt == 0:                      # a whole number of CTAs a tile
+        assert all(len(segs) == 1 for segs in ranges)
+    seen = {}
+    for i, segs in enumerate(ranges):
+        share = sum(b - a for _, a, b in segs)
+        assert units // ctas <= share <= -(-units // ctas)
+        blocks = set()
+        for t, a, b in segs:
+            assert 0 <= a < b <= nkb
+            blocks.update(range(a, b))
+            for kb in range(a, b):
+                assert (t, kb) not in seen
+                seen[(t, kb)] = i
+        assert len(blocks) <= nslot
+    assert len(seen) == units
+    per_sm = [0] * sms
+    for i, segs in enumerate(ranges):
+        per_sm[i % sms] += sum(b - a for _, a, b in segs)
+    # one CTA's share, and a unit of rounding for each CTA an SM holds
+    assert max(per_sm) - min(per_sm) <= -(-units // ctas) + tqm.decode_ctas_per_sm(rows)
+    for t in range(nt):
+        tu0 = t * nkb
+        first = ((tu0 + 1) * ctas - 1) // units
+        last = ((tu0 + nkb) * ctas - 1) // units
+        owners = sorted({seen[(t, kb)] for kb in range(nkb)})
+        assert owners == list(range(first, last + 1))
+        for i in owners:
+            slot = 0 if i * units // ctas > tu0 else 1
+            seg = [s for s in ranges[i] if s[0] == t][0]
+            assert slot == (0 if seg[1] > 0 else 1)
+    if weight in QWEN2_SHAPES:
+        assert tqm.decode_smem(rows, nslot) <= tqm._DECODE_SMEM[tqm.decode_ctas_per_sm(rows)]

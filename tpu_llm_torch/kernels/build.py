@@ -44,6 +44,10 @@ SIGNATURES = {
     # vec, stream
     "tlt_qmatmul": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, x_bf16, row_scale, q, scales, mins, s_dtype, voff, block, out,
+    # out_bf16, partial, counters, rows, K, N, ctas, nslot, vec, stream
+    "tlt_qmatmul_decode": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P],
     # q, q_bf16, k_cache, v_cache, cache_bf16, k_cur, v_cur, pos, out,
     # part_acc, part_ml, counters, B, H, Hkv, D, S, rows_per_split, n_split,
     # sm_scale, stream

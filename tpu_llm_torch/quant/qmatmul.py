@@ -14,10 +14,14 @@ kernel, ``x * row_scale`` stays f32 (it is not rounded back to x's dtype).
 ``qmatmul`` takes the plain twin for CPU tensors and launches the kernel
 for CUDA tensors, or raises for a weight the kernel does not take (no
 quiet dequantize); ``qmatmul.launches`` counts kernel launches. On the
-card every row count is one launch of one tensor-core body (values exact
-in bf16, scales on the f32 accumulators, f32 x' in three bf16 parts, the
-K split merged in the launch); ``qmatmul_blocked_plain`` repeats that
-arithmetic in plain PyTorch for the tests.
+card every call is one launch of one of two bodies, chosen from shapes
+(``takes_decode``): up to ``DECODE_ROWS`` rows of a nibble-packed kind
+the decode body (``qmatmul.decode_launches`` counts it: f32 x' times the
+exact values on the CUDA cores, the work split evenly over the SMs);
+every other call the tensor-core body (values exact in bf16, scales on
+the f32 accumulators, f32 x' in three bf16 parts, the K split merged in
+the launch), whose arithmetic ``qmatmul_blocked_plain`` repeats in plain
+PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -41,6 +45,17 @@ _PLANE_CODE = {dt: i for i, dt in enumerate(PLANE_DTYPES)}
 _COLS_PER_BLOCK = 128    # csrc/qmatmul.cu kCols
 _TARGET_CTAS_PER_SM = 4  # the K split fills the card to about this
 _MIN_BLOCKS_PER_SPLIT = 4
+# The decode body takes rows 1 .. DECODE_ROWS of a nibble-packed kind: the
+# largest row count at which it beats the tensor-core body on the H100 at
+# every Qwen2-7B projection, f32 and bf16 x, timed as a decode graph sees
+# it (chip_smoke.py k1_row_sweep, its k1_rows line)
+DECODE_ROWS = 1
+_DECODE_MAX_ROWS = 2     # the rows csrc/qmatmul.cu launch_decode_rows builds
+_DECODE_WARPS = 8        # kDecThreads / 32
+_SLOT_FLOATS = 38        # a staged x' block (kSlotLD) and its two group sums
+# dynamic shared memory a decode CTA may take at 1 and 2 CTAs an SM (the
+# SM's 228 KB less 1 KB a CTA the system keeps)
+_DECODE_SMEM = {1: 227 * 1024, 2: 113 * 1024}
 
 
 def qmatmul_plain(x: torch.Tensor, qt: QTensor, out_dtype=None,
@@ -113,6 +128,77 @@ def row_tile(rows: int) -> int:
     return 16 if rows <= 16 else 64
 
 
+def decode_ctas_per_sm(rows: int) -> int:
+    """CTAs of the decode body an SM holds (csrc/qmatmul.cu Dec::MINB): two
+    at one row, one above (the accumulators of more rows take the registers
+    of a second CTA)."""
+    return 2 if rows == 1 else 1
+
+
+def decode_grid(rows: int, K: int, N: int, sm_count: int):
+    """(CTAs, x' slots) of the decode body, from shapes only (a captured
+    graph replays it). Its U = ceil(N / 128) * K / 32 units (128-column
+    tile, 32-row block), tile-major, go to the CTAs as equal contiguous
+    ranges (``decode_ranges``), at most the card's slots (SMs x
+    decode_ctas_per_sm). Where the tiles are fewer than the slots, a whole
+    number of CTAs a tile, if that keeps 7/8 of the slots busy: each CTA's
+    range is then an even slice of K in one tile. Else every slot, and a
+    range may cross tiles. A CTA stages x' for the blocks of its range:
+    all K / 32, or as many as the range holds."""
+    nkb = K // 32
+    tiles = math.ceil(N / _COLS_PER_BLOCK)
+    units = tiles * nkb
+    slots = sm_count * decode_ctas_per_sm(rows)
+    ctas = min(units, slots)
+    if tiles <= slots and 8 * tiles * (slots // tiles) >= 7 * slots:
+        ctas = min(units, tiles * (slots // tiles))
+    return ctas, min(nkb, math.ceil(units / ctas))
+
+
+def decode_smem(rows: int, nslot: int) -> int:
+    """Dynamic shared memory of a decode CTA: the warps' sums of a tile and
+    x' (with its scale-group sums) for ``nslot`` blocks, f32."""
+    return 4 * rows * (_DECODE_WARPS * _COLS_PER_BLOCK + _SLOT_FLOATS * nslot)
+
+
+def _decode_fits(rows: int, K: int, N: int, pack: int, sm_count: int) -> bool:
+    """Whether the decode body can take a call: a nibble-packed kind (pack
+    1), 1-2 rows, x' within the shared memory of its CTAs, and a counter
+    for each 128-column tile."""
+    if pack != 1 or not 1 <= rows <= _DECODE_MAX_ROWS:
+        return False
+    _, nslot = decode_grid(rows, K, N, sm_count)
+    return decode_smem(rows, nslot) <= _DECODE_SMEM[decode_ctas_per_sm(rows)] and \
+        math.ceil(N / _COLS_PER_BLOCK) <= TILE_COUNTERS
+
+
+def takes_decode(rows: int, K: int, N: int, pack: int, sm_count: int) -> bool:
+    """Whether a call takes the decode body: up to DECODE_ROWS rows where
+    the body can take them (``_decode_fits``)."""
+    return rows <= DECODE_ROWS and _decode_fits(rows, K, N, pack, sm_count)
+
+
+def decode_ranges(rows: int, K: int, N: int, sm_count: int):
+    """What each decode CTA computes (csrc/qmatmul.cu qmm_tc_kernel_decode):
+    a list a CTA of its segments (tile, first block, end block). CTA i
+    takes units [i U / G, (i + 1) U / G) of the tile-major order; a tile
+    that more than one CTA touches is merged by the last to arrive."""
+    ctas, _ = decode_grid(rows, K, N, sm_count)
+    nkb = K // 32
+    units = math.ceil(N / _COLS_PER_BLOCK) * nkb
+    out = []
+    for i in range(ctas):
+        u, u1 = i * units // ctas, (i + 1) * units // ctas
+        segs = []
+        while u < u1:
+            t, a = divmod(u, nkb)
+            b = min(nkb, a + u1 - u)
+            segs.append((t, a, b))
+            u += b - a
+        out.append(segs)
+    return out
+
+
 # one int32 per output tile of a K-split launch, a buffer per device,
 # zero-filled at the first call: each launch leaves them at 0 (the last
 # split of a tile resets its counter), so launches on one stream and CUDA
@@ -183,9 +269,19 @@ def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None,
             row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(x * row_scale) (..., K) f32 or bf16 @ qt (K, N) -> (..., N) in
     ``out_dtype`` (default x's dtype)."""
-    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu" and qt.device.type == "cpu":
-        return qmatmul_plain(x, qt, out_dtype, row_scale)
+        return qmatmul_plain(x, qt, out_dtype or x.dtype, row_scale)
+    return qmatmul_body(x, qt, None, out_dtype, row_scale)
+
+
+def qmatmul_body(x: torch.Tensor, qt: QTensor, decode: Optional[bool], out_dtype=None,
+                 row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``qmatmul`` on the card, one launch of the decode body (``decode``
+    True), of the tensor-core body (False) or of the one ``takes_decode``
+    picks (None, what ``qmatmul`` does). The row sweep that fixed
+    DECODE_ROWS and the card tests name a body; True raises where the
+    decode body does not take the call."""
+    out_dtype = out_dtype or x.dtype
     if x.device.type != "cuda" or x.device != qt.device or \
             (row_scale is not None and row_scale.device != x.device):
         raise ValueError(f"x on {x.device}, weight on {qt.device}")
@@ -200,28 +296,46 @@ def qmatmul(x: torch.Tensor, qt: QTensor, out_dtype=None,
             raise ValueError(f"row_scale {tuple(row_scale.shape)} for K={K}")
         row_scale = row_scale.float().contiguous()
     x2 = x.reshape(-1, K).contiguous()
-    if x2.data_ptr() % 16:                 # the kernel copies x in 16-byte chunks
+    if x2.data_ptr() % 16:                 # the kernels copy x in 16-byte chunks
         x2 = x2.clone()
     rows = x2.shape[0]
     out = torch.empty((rows, N), dtype=out_dtype, device=x.device)
-    ks, kbps = k_split(rows, K, N, _sm_count(x.device))
+    sm_count = _sm_count(x.device)
     counters = _counters(x.device)
-    partial = None
-    if ks > 1:
-        partial = torch.empty((ks, rows, N), dtype=torch.float32, device=x.device)
     qh = qt.mins if pack == 2 else None
     mins = None if pack == 2 else qt.mins
     vec = N % 16 == 0 and all(t is None or t.data_ptr() % 16 == 0
                               for t in (qt.q, qh, qt.scales, mins))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    code = build.lib().tlt_qmatmul(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), ptr(row_scale), qt.q.data_ptr(),
-        ptr(qh), qt.scales.data_ptr(), ptr(mins), plane, pack, voff, block,
-        out.data_ptr(), int(out_dtype == torch.bfloat16), ptr(partial), counters.data_ptr(),
-        rows, K, N, ks, kbps, int(vec), build.stream_ptr(x.device))
+    x_bf16, out_bf16 = int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
+    stream = build.stream_ptr(x.device)
+    if decode is None:
+        decode = takes_decode(rows, K, N, pack, sm_count)
+    elif decode and not _decode_fits(rows, K, N, pack, sm_count):
+        raise ValueError(f"qmatmul decode body: {qt.kind} at {rows} rows, K={K}, N={N}")
+    if decode:
+        ctas, nslot = decode_grid(rows, K, N, sm_count)
+        partial = torch.empty((ctas, 2, rows, _COLS_PER_BLOCK), dtype=torch.float32,
+                              device=x.device)
+        code = build.lib().tlt_qmatmul_decode(
+            x2.data_ptr(), x_bf16, ptr(row_scale), qt.q.data_ptr(), qt.scales.data_ptr(),
+            ptr(mins), plane, voff, block, out.data_ptr(), out_bf16, partial.data_ptr(),
+            counters.data_ptr(), rows, K, N, ctas, nslot, int(vec), stream)
+        qmatmul.decode_launches += 1
+    else:
+        ks, kbps = k_split(rows, K, N, sm_count)
+        partial = None
+        if ks > 1:
+            partial = torch.empty((ks, rows, N), dtype=torch.float32, device=x.device)
+        code = build.lib().tlt_qmatmul(
+            x2.data_ptr(), x_bf16, ptr(row_scale), qt.q.data_ptr(), ptr(qh),
+            qt.scales.data_ptr(), ptr(mins), plane, pack, voff, block, out.data_ptr(),
+            out_bf16, ptr(partial), counters.data_ptr(), rows, K, N, ks, kbps, int(vec),
+            stream)
     build.check(code, "qmatmul")
     qmatmul.launches += 1
     return out.reshape(*lead, N)
 
 
 qmatmul.launches = 0
+qmatmul.decode_launches = 0

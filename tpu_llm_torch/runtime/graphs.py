@@ -21,13 +21,14 @@ Launch counts: each kernel wrapper counts on the host where it launches,
 so a capture would count launches that did not happen and a replay none
 of those it makes. ``CapturedStep`` takes back what the capture counted
 and adds it again on every replay: ``launches`` stays the number of
-kernel launches the card ran. ``per_replay`` holds those counts; the
-wrappers they belong to are looked up once, at capture.
+kernel launches the card ran (``qmatmul.decode_launches``, its decode
+body's launches, likewise, as "qmatmul.decode"). ``per_replay`` holds
+those counts; the wrappers they belong to are looked up once, at capture.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -45,8 +46,17 @@ def counted_kernels() -> Dict[str, Callable]:
             "paged_flash_decode_q": FA.paged_flash_decode_q}
 
 
+def _count_refs() -> Dict[str, Tuple[Callable, str]]:
+    """(wrapper, attribute) of every launch count, by name: each wrapper's
+    ``launches``, and K1's decode body's as "qmatmul.decode"."""
+    wrappers = counted_kernels()
+    refs = {n: (f, "launches") for n, f in wrappers.items()}
+    refs["qmatmul.decode"] = (wrappers["qmatmul"], "decode_launches")
+    return refs
+
+
 def _counts() -> Dict[str, int]:
-    return {n: f.launches for n, f in counted_kernels().items()}
+    return {n: getattr(f, a) for n, (f, a) in _count_refs().items()}
 
 
 class CapturedStep:
@@ -58,7 +68,7 @@ class CapturedStep:
         self.device = torch.device(device)
         self.graph = None
         self.per_replay: Dict[str, int] = {}
-        self._counted = []                       # (wrapper, launches a replay)
+        self._counted = []                       # (wrapper, attribute, launches a replay)
         self.replays = 0
         if self.device.type != "cuda":
             for _ in range(warmup):
@@ -75,12 +85,13 @@ class CapturedStep:
             fn()
         after = _counts()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        wrappers = counted_kernels()
+        refs = _count_refs()
         for name, n in before.items():
-            wrappers[name].launches = n          # the capture launched nothing
+            wrapper, attr = refs[name]
+            setattr(wrapper, attr, n)            # the capture launched nothing
             if after[name] != n:
                 self.per_replay[name] = after[name] - n
-                self._counted.append((wrappers[name], after[name] - n))
+                self._counted.append((wrapper, attr, after[name] - n))
         self.graph = graph
 
     def __call__(self):
@@ -89,5 +100,5 @@ class CapturedStep:
             return
         self.graph.replay()
         self.replays += 1
-        for wrapper, n in self._counted:
-            wrapper.launches += n
+        for wrapper, attr, n in self._counted:
+            setattr(wrapper, attr, getattr(wrapper, attr) + n)
