@@ -7,7 +7,9 @@ window (``harness.run_program``), and judges on the run's own check
 sample, by the comparison that decides a run's ``correct``
 (``check.judged``), both the program and the control: the reference
 with every projection's input in float8 e4m3, the step below the stated
-bf16, put in the program's place at the same served positions. It prints
+bf16, put in the program's place at the same served positions (for a
+mixture of experts on the program's experts for ``max_gap``, on its own
+top k for ``route_gap``). It prints
 both sets of numbers with their limits and verdicts, one line a seed. A
 cell's limit lies above every seed's program reading and below every
 seed's control reading. The benchmark's runs do not run this.

@@ -1,14 +1,19 @@
-"""A closed loop of ``clients`` offline-batch clients through ``BatchEngine``,
-as ``llm-serve --batch N`` runs it by default: a dense cache of
-``max_seq`` rows a slot, one dedicated prefill an admission, one batched
-decode a step. Each client sends its next request as soon as its last one
-completes.
+"""One fixed offline-batch job through ``BatchEngine``, as ``llm-serve
+--batch N`` runs it: a dense cache of ``max_seq`` rows a slot, one
+dedicated prefill an admission, one batched decode a step.
 
-Set-up builds the engine, warms up every prefill bucket the mix's prompts
-fall in and the decode step, resets it, and runs the loop for ``ramp_s``
-before the window opens. When the window closes the clients stop sending;
-the loop steps on, untimed, until the finished requests hold the check's
-sample (at most ``drain_s``), and abandons the rest.
+The job is the mix's first ``steps`` engine steps over its requests in
+the mix's order: before each step the loop hands the engine one request
+for every slot that the step will find free, so admission follows the
+engine's steps and not the clock, and two runs of one seed do the same
+steps, with the same rows and prefills, in the same order. The window is
+the whole job, from the first submit until the last step's tokens are
+read; ``seconds`` does not change it (``steps`` is sized on the card).
+
+Set-up builds the engine and warms up every prefill bucket the mix's
+prompts fall in and the decode step. For a configuration with experts
+the run records the experts the program chose (``routes.py``): the entry
+names the request and positions of every prefill row and live decode row.
 """
 
 from __future__ import annotations
@@ -17,7 +22,6 @@ import time
 
 import torch
 
-from benchmark import check
 from benchmark.record import Req, Run
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -73,9 +77,28 @@ def instrument(ctx, eng, kv_bytes: int) -> None:
     instrument_steps(ctx, eng, kv_bytes)
 
 
+def follow(eng, routes) -> None:
+    """Name the rows of every prefill and decode forward for ``routes``:
+    an admission's prompt rows, and each live slot's row at its position."""
+    prefill, decode = eng._prefill, eng._decode
+
+    def _prefill(idx, toks, last_idx):
+        routes.begin([(0, eng.slots[idx].req.rid, 0, last_idx + 1)])
+        return prefill(idx, toks, last_idx)
+
+    def _decode(offsets):
+        routes.begin([(i, s.req.rid, s.pos - 1, 1)
+                      for i, s in enumerate(eng.slots) if not s.free])
+        return decode(offsets)
+
+    eng._prefill, eng._decode = _prefill, _decode
+
+
 def run(ctx) -> Run:
     from tpu_llm_torch.runtime.batching import BatchEngine, Request
     from tpu_llm_torch.runtime.engine import ModelAdapter
+
+    from benchmark.routes import Routes
 
     mix = ctx.mix
     e = mix["engine"]
@@ -91,15 +114,15 @@ def run(ctx) -> Run:
     eng.run()
     if ctx.device == "cuda":
         torch.cuda.synchronize()
-    eng.reset()
+    routes = None
+    if ctx.d["X"]:
+        routes = Routes(ctx.params, ctx.d["k"])
+        follow(eng, routes)
     if ctx.rec is not None:
         instrument(ctx, eng, dtype.itemsize)
 
-    t_start_loop = time.perf_counter()
-    t_open = ctx.open_window(t_start_loop + mix["ramp_s"])
-    t_close = t_open + ctx.seconds
-    run = Run(t_open=t_open, t_close=t_close, setup_s=t_open - ctx.t_start)
-    live = []
+    t_open = ctx.open_window(time.perf_counter(), mix.get("trace_end_s"))
+    run = Run(t_open=t_open, t_close=t_open, setup_s=t_open - ctx.t_start, routes=routes)
 
     def send():
         spec = next(ctx.specs)
@@ -111,30 +134,30 @@ def run(ctx) -> Run:
             r.tokens.append(tok)
             r.done = len(r.tokens) >= spec.max_new
 
-        eng.submit(Request(prompt=spec.prompt, max_new=spec.max_new,
-                           temperature=spec.temperature, seed=spec.seed, stream=stream,
-                           stop_at_eos=mix.get("stop_at_eos", False)))
+        r.rid = eng.submit(Request(prompt=spec.prompt, max_new=spec.max_new,
+                                   temperature=spec.temperature, seed=spec.seed,
+                                   stream=stream,
+                                   stop_at_eos=mix.get("stop_at_eos", False))).rid
         run.requests.append(r)
-        live.append(r)
 
-    for _ in range(mix["clients"]):
-        send()
-    while True:
-        now = time.perf_counter()
-        ctx.tick(now)
-        if now >= t_close and (now >= t_close + mix["drain_s"] or not eng.n_active or sum(
-                len(r.tokens) for r in check.finished(run)) >= mix["check"]["served_tokens"]):
-            break
-        with ctx.span("engine step"):
-            n = eng.step()
-        run.steps.append((now, time.perf_counter(), n))
-        for r in [r for r in live if r.done]:
-            live.remove(r)
-            if now < t_close:
+    if routes is not None:
+        routes.install()
+    try:
+        for _ in range(mix["steps"]):
+            now = time.perf_counter()
+            ctx.tick(now)
+            for _ in range(sum(s.free for s in eng.slots) - len(eng._queue)):
                 send()
-    if ctx.device == "cuda":
-        torch.cuda.synchronize()
-    run.t_end = time.perf_counter()
+            with ctx.span("engine step"):
+                n = eng.step()
+            run.steps.append((now, time.perf_counter(), n))
+        eng._collect()                         # the last step's tokens
+        if ctx.device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        if routes is not None:
+            routes.uninstall()
+    run.t_close = run.t_end = time.perf_counter()
 
     def release():
         nonlocal eng

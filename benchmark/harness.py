@@ -344,13 +344,15 @@ class Context:
         both bf16 (Qwen2's f32 biases make its q f32), else f32."""
         return "f32" if self.d["bias"] or kv_bytes == 4 else "bf16"
 
-    def open_window(self, t_open: float) -> float:
+    def open_window(self, t_open: float, length: Optional[float] = None) -> float:
         """The window opens at ``t_open``; the traced sub-window is its last
         ``trace_s`` seconds, so that stopping the profiler and reading its
-        events delay no request of the window."""
+        events delay no request of the window. A fixed job, whose window is
+        as long as its work takes, gives the ``length`` it traces up to."""
         if self.trace:
-            span = min(self.seconds, float(self.mix.get("trace_s", self.seconds)))
-            end = t_open + self.seconds
+            length = self.seconds if length is None else length
+            span = min(length, float(self.mix.get("trace_s", length)))
+            end = t_open + length
             self.tracer = Tracer(self.rec, end - span, end, self.device == "cuda")
         return t_open
 

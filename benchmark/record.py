@@ -1,7 +1,8 @@
 """What a run recorded, on the host clock (``time.perf_counter``): the
 window, every request with its due time and the receipt time of each of
 its tokens, the engine's steps, the program's counters, and the traced
-sub-window. Metric readers (``metrics/``) read only this."""
+sub-window; for a mixture of experts, the experts the program chose.
+Metric readers (``metrics/``) read only this."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ class Req:
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     failed: bool = False
+    rid: int = -1                    # the engine's request id (the route record's key)
 
     @property
     def first(self) -> Optional[float]:
@@ -42,6 +44,7 @@ class Run:
     trace: Optional[dict] = None
     memory_peak_bytes: int = 0
     t_end: float = 0.0               # when the run stopped waiting (drain's end)
+    routes: Optional[object] = None  # the experts the program chose (routes.Routes)
     release: Callable[[], None] = lambda: None
 
     @property

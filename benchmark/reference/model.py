@@ -16,6 +16,14 @@ experts: softmax over the router's logits, the top k renormalised to sum
 1, the selected experts' SwiGLU outputs summed with those weights ->
 residual. Then the final RMSNorm and the classifier, in f32.
 
+``routes`` (optional, for a mixture of experts): the experts and their
+gate weights to use at every layer and position of each sequence, an
+(experts, weights) pair of (layers, positions, k) tensors a sequence, as
+the program's router gave them. With routes every layer sums those
+experts with those weights; without them it takes its own top k, as
+above. ``router_logits``, a list, receives each layer's own router logits
+(every sequence's positions in order), for the router's own check.
+
 ``act`` rounds every projection's input: "f32" (the reference), "bf16",
 or "fp8" (float8 e4m3 with one scale a row, the step below bf16 that a
 later change could take). TF32 stays off throughout.
@@ -23,7 +31,7 @@ later change could take). TF32 stays off throughout.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -102,10 +110,15 @@ def _mlp(x, w_gate, w_up, w_down, act):
     return round_act(mid, act) @ w_down
 
 
-def _moe(x, lp, n_exp: int, k: int, act: str) -> torch.Tensor:
-    probs = torch.softmax(round_act(x, act) @ lp["router"].float(), dim=-1)
-    topw, topi = torch.topk(probs, k, dim=-1)
-    topw = topw / topw.sum(dim=-1, keepdim=True)
+def _moe(x, lp, n_exp: int, k: int, act: str, chosen=None, router_logits=None):
+    logits = round_act(x, act) @ lp["router"].float()
+    if router_logits is not None:
+        router_logits.append(logits)
+    if chosen is None:
+        topw, topi = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    else:
+        topi, topw = chosen
     out = torch.zeros_like(x)
     for e in range(n_exp):
         rows, slot = (topi == e).nonzero(as_tuple=True)
@@ -120,7 +133,8 @@ def _moe(x, lp, n_exp: int, k: int, act: str) -> torch.Tensor:
 
 @torch.no_grad()
 def logits_at(cfg: dict, raw: dict, seqs: Sequence[Sequence[int]],
-              spans: Sequence[tuple], act: str = "f32") -> List[torch.Tensor]:
+              spans: Sequence[tuple], act: str = "f32", routes=None,
+              router_logits: Optional[list] = None) -> List[torch.Tensor]:
     """For each token sequence (BOS and prompt and served tokens) the f32
     logits (n, V) at the positions [a, b) of its span: position p's logits
     predict token p + 1."""
@@ -128,12 +142,12 @@ def logits_at(cfg: dict, raw: dict, seqs: Sequence[Sequence[int]],
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return _logits_at(cfg, raw, seqs, spans, act)
+        return _logits_at(cfg, raw, seqs, spans, act, routes, router_logits)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def _logits_at(cfg, raw, seqs, spans, act):
+def _logits_at(cfg, raw, seqs, spans, act, routes, router_logits):
     E = cfg["hidden_size"]
     H = cfg["num_attention_heads"]
     Hkv = cfg.get("num_key_value_heads", H)
@@ -145,7 +159,7 @@ def _logits_at(cfg, raw, seqs, spans, act):
     n_exp, k = cfg.get("num_local_experts", 0), cfg.get("num_experts_per_tok", 0)
     emb = raw["tok_emb"]
     xs = [emb[torch.as_tensor(list(s), device=emb.device)].float() for s in seqs]
-    for lp in raw["layers"]:
+    for li, lp in enumerate(raw["layers"]):
         wqkv = dequant_q4_0(lp["wqkv"])
         wo = dequant_q4_0(lp["wo"])
         for i, x in enumerate(xs):
@@ -164,7 +178,9 @@ def _logits_at(cfg, raw, seqs, spans, act):
         x = torch.cat(xs)
         h = rmsnorm(x, lp["ffn_norm"], eps)
         if n_exp:
-            x = x + _moe(h, lp, n_exp, k, act)
+            chosen = None if routes is None else tuple(
+                torch.cat([r[j][li] for r in routes]).to(x.device) for j in (0, 1))
+            x = x + _moe(h, lp, n_exp, k, act, chosen, router_logits)
         else:
             w13 = dequant_q4_0(lp["w13"])
             x = x + _mlp(h, w13[:, :F], w13[:, F:], dequant_q4_0(lp["w2"]), act)

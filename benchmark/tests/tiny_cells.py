@@ -10,9 +10,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-TINY_LIMIT = {"max_gap": 0.02}
+TINY_LIMIT = {"max_gap": 0.02, "route_gap": 0.02, "router_gap": 0.02}
 # cells that no entry of BENCHMARK.json holds: they keep the BatchEngine
-# entry and the MoE paths (masked at 16 rows, gather at one) tested here
+# entry, the route-following check and the MoE paths (masked at 16 rows,
+# gather at one) tested here
 LIBRARY = [{"name": "mixtral-8x7b.batch16", "config": "mixtral-8x7b", "traffic": "batch16"},
            {"name": "mixtral-8x7b.chat-scan", "config": "mixtral-8x7b", "traffic": "chat-scan"}]
 
@@ -50,7 +51,7 @@ def tiny_mix(name: str) -> dict:
     else:
         e.update(max_seq=96)
     if m["entry"] == "batch":
-        m["clients"] = 4
+        m.update(steps=40, trace_end_s=1.0)
     if "ramp_s" in m:
         m["ramp_s"] = 0.5
     if "rate_per_s" in m:
