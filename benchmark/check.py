@@ -1,5 +1,6 @@
 """What decides ``correct``: a sample of the greedy requests the window
-finished, held against the plain reference (``reference/model.py``).
+finished, held against the plain reference of the configuration's
+architecture (its module's ``logits_at``, ``arch/<arch>.py``).
 
 The sample is drawn from the run's seed and always holds the request with
 the most served tokens; more are added until ``check.served_tokens``
@@ -36,7 +37,6 @@ from typing import List
 import torch
 
 from benchmark.record import Req, Run
-from benchmark.reference import model as reference
 
 NO_SAMPLE = 1e30             # max_gap of a run that finished no greedy request
 
@@ -98,18 +98,19 @@ def router_gaps(ref_logits: List[torch.Tensor], logits: List[torch.Tensor], k: i
     return route, router
 
 
-def check(cfg: dict, raw: dict, run: Run, mix: dict, limits: dict, seed: int) -> dict:
+def check(arch, cfg: dict, raw: dict, run: Run, mix: dict, limits: dict, seed: int) -> dict:
     """The numbers that decide ``correct``, each with its limit."""
-    return judged(cfg, raw, run, mix, limits, seed)[None]
+    return judged(arch, cfg, raw, run, mix, limits, seed)[None]
 
 
-def judged(cfg: dict, raw: dict, run: Run, mix: dict, limits: dict, seed: int,
+def judged(arch, cfg: dict, raw: dict, run: Run, mix: dict, limits: dict, seed: int,
            controls=()) -> dict:
     """{None: the program's numbers} and, for each precision in ``controls``,
     the numbers of the reference at that precision put in the program's
     place: the tokens it puts first at the same served positions, fed the
-    same prompts and served tokens. Each number has its limit; the run's
-    overrun is the same for all."""
+    same prompts and served tokens (the reference: ``arch.logits_at``, of
+    the configuration's architecture module). Each number has its limit;
+    the run's overrun is the same for all."""
     reqs = sample(run, mix["check"]["served_tokens"], seed)
     overrun = sum(len(r.tokens) > r.spec.max_new for r in run.requests)
     routed = run.routes is not None
@@ -121,14 +122,14 @@ def judged(cfg: dict, raw: dict, run: Run, mix: dict, limits: dict, seed: int,
         k = int(cfg.get("num_experts_per_tok", 0))
         routes = [g[:2] for g in got] if routed else None       # experts, gate weights
         rl = [] if routed else None
-        ref = reference.logits_at(cfg, raw, seqs, spans, "f32", routes, rl)
+        ref = arch.logits_at(cfg, raw, seqs, spans, "f32", routes, rl)
         found[None]["max_gap"] = gaps(ref, [torch.tensor(s) for s in served]).max().item()
         if routed:
             found[None]["route_gap"], found[None]["router_gap"] = router_gaps(
                 rl, [torch.cat([g[2][li] for g in got]) for li in range(len(rl))], k)
         for act in controls:
             low_rl = [] if routed else None
-            low = reference.logits_at(cfg, raw, seqs, spans, act, routes, low_rl)
+            low = arch.logits_at(cfg, raw, seqs, spans, act, routes, low_rl)
             found[act]["max_gap"] = gaps(ref, [lg.argmax(dim=-1) for lg in low]).max().item()
             if routed:
                 found[act]["route_gap"], found[act]["router_gap"] = router_gaps(rl, low_rl, k)

@@ -43,7 +43,7 @@ def readings(workload: str, seed: int, seconds: float, device: str = "cuda") -> 
     ctx = harness.Context(cfg_file, mix, seed, seconds, False, device, t0)
     run = harness.run_program(ctx, entry)
     t1 = time.perf_counter()
-    judged = check.judged(ctx.cfg, ctx.raw, run, mix, limits, seed, (CONTROL,))
+    judged = check.judged(ctx.arch, ctx.cfg, ctx.raw, run, mix, limits, seed, (CONTROL,))
     out = {"workload": workload, "seed": seed,
            "served_tokens": sum(len(r.tokens) for r in check.sample(
                run, mix["check"]["served_tokens"], seed))}

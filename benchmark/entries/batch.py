@@ -42,7 +42,7 @@ def _buckets(lo: int, hi: int):
 def instrument_steps(ctx, eng, kv_bytes: int) -> None:
     """A batch engine's decode and host read, for the traced run: their
     spans, the decode rows' positions and each decode forward's work
-    (PagedEngine shares them)."""
+    (the paged engine shares them)."""
     rec = ctx.rec
     peak = ctx.attn_peak(kv_bytes)
     decode, collect = eng._decode, eng._collect
@@ -96,15 +96,13 @@ def follow(eng, routes) -> None:
 
 def run(ctx) -> Run:
     from tpu_llm_torch.runtime.batching import BatchEngine, Request
-    from tpu_llm_torch.runtime.engine import ModelAdapter
 
     from benchmark.routes import Routes
 
     mix = ctx.mix
     e = mix["engine"]
     dtype = DTYPES[e["cache_dtype"]]
-    eng = BatchEngine(ctx.params, ModelAdapter.llama(ctx.pcfg, dtype, bos_id=ctx.bos_id,
-                                                     device=ctx.device),
+    eng = BatchEngine(ctx.params, ctx.arch.adapter(ctx.pcfg, dtype, ctx.bos_id, ctx.device),
                       batch=e["batch"], max_seq=e["max_seq"], eos_id=ctx.eos_id)
     lo, hi = ctx.cfg_file["token_ids"]
     g = torch.Generator().manual_seed(0)
@@ -116,7 +114,7 @@ def run(ctx) -> Run:
         torch.cuda.synchronize()
     routes = None
     if ctx.d["X"]:
-        routes = Routes(ctx.params, ctx.d["k"])
+        routes = Routes(ctx.params, ctx.d["k"], ctx.arch.router_site)
         follow(eng, routes)
     if ctx.rec is not None:
         instrument(ctx, eng, dtype.itemsize)

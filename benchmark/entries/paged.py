@@ -1,6 +1,7 @@
-"""Open-loop serving through ``PagedEngine``, as ``llm-serve --paged`` runs
-it: a paged KV pool with prefix caching, chunked prefill, continuous
-batching over the mix's slots.
+"""Open-loop serving through the program's paged engine (the architecture
+module's ``paged_engine``), as ``llm-serve --paged`` runs it: a paged KV
+pool with prefix caching, chunked prefill, continuous batching over the
+mix's slots.
 
 Set-up builds the engine, warms up every shape the mix can send (each
 prefill-tail bucket, the chunked prefill, the decode step with and
@@ -25,15 +26,12 @@ from benchmark.record import Req, Run
 
 
 def _engine(ctx):
-    from tpu_llm_torch.runtime.paged_engine import PagedEngine
-
     e = ctx.mix["engine"]
     bs = e["block_size"]
-    return PagedEngine(ctx.params, ctx.pcfg, batch=e["batch"],
-                       n_blocks=1 + e["pool_tokens"] // bs, block_size=bs,
-                       max_seq=e["max_seq"], eos_id=ctx.eos_id, bos_id=ctx.bos_id,
-                       cache_dtype=DTYPES[e["cache_dtype"]],
-                       prefill_chunk=e["prefill_chunk"], device=ctx.device)
+    return ctx.arch.paged_engine(ctx, batch=e["batch"], n_blocks=1 + e["pool_tokens"] // bs,
+                                 block_size=bs, max_seq=e["max_seq"], eos_id=ctx.eos_id,
+                                 bos_id=ctx.bos_id, cache_dtype=DTYPES[e["cache_dtype"]],
+                                 prefill_chunk=e["prefill_chunk"], device=ctx.device)
 
 
 def warm_lengths(mix: dict):

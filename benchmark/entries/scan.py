@@ -40,13 +40,12 @@ def instrument(ctx, eng, kv_bytes: int) -> None:
 
 
 def run(ctx) -> Run:
-    from tpu_llm_torch.runtime.engine import Engine, ModelAdapter
+    from tpu_llm_torch.runtime.engine import Engine
 
     mix = ctx.mix
     e = mix["engine"]
     dtype = DTYPES[e["cache_dtype"]]
-    eng = Engine(ctx.params, ModelAdapter.llama(ctx.pcfg, dtype, bos_id=ctx.bos_id,
-                                                device=ctx.device),
+    eng = Engine(ctx.params, ctx.arch.adapter(ctx.pcfg, dtype, ctx.bos_id, ctx.device),
                  max_seq=e["max_seq"], device=ctx.device)
     lo, hi = ctx.cfg_file["token_ids"]
     g = torch.Generator().manual_seed(0)

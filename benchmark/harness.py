@@ -3,6 +3,10 @@ configuration, traffic mix and metrics, and the harness finds each by name
 in a file of its own:
 
 - ``configs/<config>.json``: the model's published config and its cut;
+  its ``arch`` names the architecture module ``arch/<arch>.py``, through
+  which the harness reaches everything that depends on the model's
+  architecture (weights, the program's model and engines, the reference,
+  the forward's cost, the kernel entries to wrap; see ``arch/llama.py``);
 - ``traffic/<mix>.json``: the mix's parameters, read by the one generator
   (``traffic/generator.py``); its ``entry`` names the module under
   ``entries/`` that drives the program with it;
@@ -19,28 +23,41 @@ what the window produced against the plain reference (``check.py``).
 
 With ``trace`` the entry also runs ``torch.profiler`` over a sub-window
 (``Tracer``) while a ``Recorder`` notes the shape of every kernel call,
-the work of every forward and the host spans; the per-layer metrics read
-those. Without it nothing is wrapped.
+by kind, the work of every forward and the host spans; the per-layer
+metrics read those. Without it nothing is wrapped.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import importlib.util
 import json
 import os
+import re
 import time
 from typing import Callable, Dict, List, Optional
 
-from benchmark import roofline, weights
+from benchmark import roofline
 from benchmark.record import Run
 from benchmark.traffic import generator
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+# where ``load_module`` looks for ``<folder>/<name>.py``, in order (the
+# tests put a directory of their own first)
+PLACES = [HERE]
 GAP_MIN_S = 20e-6            # device gaps shorter than this are launch spacing, not idle
 BREAKDOWN_ROWS = 10
+# what an architecture module has to define (``arch/llama.py`` documents each)
+ARCH_NAMES = ("dims", "draw", "port_params", "port_config", "adapter", "paged_engine",
+              "logits_at", "forward_cost", "attention_sites", "router_site")
+# the attention entries (K2-K6) by their names in ops/flash_attention.py:
+# how the Recorder reads a call's shape (decode: one query row a batch
+# row; appended: K3 also writes the row; paged: through a block table)
+ATTN_ENTRIES = {"flash_decode_attention": "decode", "flash_decode_fused": "appended",
+                "paged_flash_decode_attention": "paged", "flash_gqa_attention": "prefill"}
 
 
 def short_name(kernel: str) -> str:
@@ -60,10 +77,37 @@ def load_json(*parts) -> dict:
 
 def load_module(folder: str, name: str):
     """``benchmark/<folder>/<name>.py`` as a module (names may hold dots)."""
-    path = os.path.join(HERE, folder, f"{name}.py")
+    paths = [os.path.join(d, folder, f"{name}.py") for d in PLACES]
+    path = next((p for p in paths if os.path.isfile(p)), paths[-1])
     spec = importlib.util.spec_from_file_location(f"benchmark_{folder}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+class ArchError(Exception):
+    """A configuration whose ``arch`` names no usable architecture module."""
+
+
+def load_arch(cfg_file: dict):
+    """The architecture module that a configuration file names (``arch``)."""
+    name = cfg_file.get("arch")
+    where = f"configuration {cfg_file.get('name')!r}"
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}", name):
+        raise ArchError(f"{where} names no architecture: its top-level 'arch' is {name!r}")
+    if not any(os.path.isfile(os.path.join(d, "arch", f"{name}.py")) for d in PLACES):
+        known = sorted(f[:-3] for d in PLACES if os.path.isdir(os.path.join(d, "arch"))
+                       for f in os.listdir(os.path.join(d, "arch")) if f.endswith(".py"))
+        raise ArchError(f"{where} names the architecture {name!r}, which has no module "
+                        f"benchmark/arch/{name}.py (there are: {', '.join(known) or 'none'})")
+    mod = load_module("arch", name)
+    missing = [n for n in ARCH_NAMES if not hasattr(mod, n)]
+    if missing:
+        raise ArchError(f"benchmark/arch/{name}.py lacks {', '.join(missing)}")
+    unknown = [n for _, n in mod.attention_sites if n not in ATTN_ENTRIES]
+    if unknown:
+        raise ArchError(f"benchmark/arch/{name}.py: no attention entry is named "
+                        f"{', '.join(unknown)} (known: {', '.join(ATTN_ENTRIES)})")
     return mod
 
 
@@ -79,32 +123,37 @@ def cell_metrics(bench: dict, workload: str, trace: bool) -> List[dict]:
 class Recorder:
     """The shapes of the program's kernel calls, the forwards' work and the
     host's spans, while ``active``. Calls made while a CUDA graph captures
-    are kept as that graph's template and counted again at each replay."""
+    are kept as that graph's template and counted again at each replay.
 
-    def __init__(self, d: dict):
+    ``calls`` holds each kind's calls, as its ``cost(positions)`` gave them:
+    ``k1`` (ops, bytes) of K1, ``attn`` (ops, bytes, peak) of K2-K6, and
+    whatever kinds the architecture module's ``wrap`` notes."""
+
+    def __init__(self, d: dict, arch):
         self.d = d
+        self.arch = arch
         self.active = False
-        self.k1: List[tuple] = []        # (ops, bytes)
-        self.attn: List[tuple] = []      # (ops, bytes, peak)
+        self.calls: Dict[str, List[tuple]] = {"k1": [], "attn": []}
         self.forward_s = 0.0             # summed bound time of the forwards
         self.spans: List[tuple] = []     # (name, t0, t1) host perf_counter
         self.pos_hint: Optional[List[int]] = None   # decode positions of this step
         self.graph_pos = 0               # next position a replayed decode step runs at
         self._template: Optional[list] = None
 
-    # positions are resolved when the call is counted: at once for an eager
-    # call, at each replay for a captured one
-    def _note(self, kind: str, fn: Callable):
+    def note(self, kind: str, cost: Callable) -> None:
+        """One kernel call of ``kind``; ``cost(positions)`` gives what is kept.
+        Positions are resolved when the call is counted: at once for an
+        eager call, at each replay for a captured one."""
         import torch
 
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
             if self._template is not None:
-                self._template.append((kind, fn))
+                self._template.append((kind, cost))
         elif self.active:
-            self._count(kind, fn, self.pos_hint)
+            self._count(kind, cost, self.pos_hint)
 
-    def _count(self, kind, fn, positions):
-        (self.k1 if kind == "k1" else self.attn).append(fn(positions))
+    def _count(self, kind, cost, positions):
+        self.calls.setdefault(kind, []).append(cost(positions))
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -117,13 +166,13 @@ class Recorder:
 
     def forward(self, groups, logit_rows: int, kv_bytes: int, act_peak: str) -> None:
         if self.active:
-            self.forward_s += roofline.forward_cost(self.d, groups, logit_rows, kv_bytes,
-                                                    act_peak)
+            self.forward_s += self.arch.forward_cost(self.d, groups, logit_rows, kv_bytes,
+                                                     act_peak)
 
     def install(self) -> None:
-        """Wrap the port's kernel entries (K1, K2-K6) and its graph capture."""
-        from tpu_llm_torch.models import llama as M
-        from tpu_llm_torch.ops import paged_kv
+        """Wrap the port's kernel entries (K1; K2-K6 where the architecture
+        module's ``attention_sites`` say the model calls them) and its graph
+        capture, then let the module wrap kernels of its own."""
         from tpu_llm_torch.quant import linear
         from tpu_llm_torch.runtime import graphs
 
@@ -135,7 +184,7 @@ class Recorder:
             K, N = qt.shape[-2], qt.shape[-1]
             rows = x.numel() // x.shape[-1]
             args = (rows, K, N, x.element_size(), out_dtype.itemsize, qt.nbytes)
-            rec._note("k1", lambda _p: roofline.k1_call(*args))
+            rec.note("k1", lambda _p: roofline.k1_call(*args))
             return k1(x, qt, out_dtype=out_dtype, row_scale=row_scale)
 
         linear.qmatmul = qmatmul
@@ -156,7 +205,7 @@ class Recorder:
                         block=kc.shape[1] if paged else 0, appended=appended)
                     return ops, nb, roofline.attn_peak(shape[3], kvb)
 
-                rec._note("attn", cost)
+                rec.note("attn", cost)
                 return orig(q, kc, vc, *rest)
             return fn
 
@@ -166,16 +215,15 @@ class Recorder:
                 Hkv = kc.shape[2] if kc.dim() == 4 else kc.shape[-1] // D
                 args = (B, T, int(offset), H, Hkv, D, q.element_size(), kc.element_size())
                 peak = roofline.attn_peak(q.element_size(), kc.element_size())
-                rec._note("attn", lambda _p: (*roofline.prefill_attn_call(*args), peak))
+                rec.note("attn", lambda _p: (*roofline.prefill_attn_call(*args), peak))
                 return orig(q, kc, vc, offset)
             return fn
 
-        M.flash_decode_attention = decode(M.flash_decode_attention)
-        M.flash_decode_fused = decode(M.flash_decode_fused, appended=True)
-        M.flash_gqa_attention = prefill(M.flash_gqa_attention)
-        paged_kv.flash_gqa_attention = prefill(paged_kv.flash_gqa_attention)
-        paged_kv.paged_flash_decode_attention = decode(paged_kv.paged_flash_decode_attention,
-                                                       paged=True)
+        wraps = {"decode": decode, "appended": lambda f: decode(f, appended=True),
+                 "paged": lambda f: decode(f, paged=True), "prefill": prefill}
+        for module, name in self.arch.attention_sites:
+            mod = importlib.import_module(module)
+            setattr(mod, name, wraps[ATTN_ENTRIES[name]](getattr(mod, name)))
         base = graphs.CapturedStep
 
         class CapturedStep(base):
@@ -190,11 +238,13 @@ class Recorder:
                 super().__call__()
                 if rec.active:
                     pos = [rec.graph_pos]
-                    for kind, fn in self._bench_calls:
-                        rec._count(kind, fn, pos)
+                    for kind, cost in self._bench_calls:
+                        rec._count(kind, cost, pos)
                 rec.graph_pos += 1
 
         graphs.CapturedStep = CapturedStep
+        if hasattr(self.arch, "wrap"):
+            self.arch.wrap(self)
 
 
 def warm_profiler() -> None:
@@ -303,25 +353,27 @@ class Tracer:
 # -- the cell ----------------------------------------------------------------------
 
 class Context:
-    """What an entry needs: the configuration (Hugging Face dict, sizes, the
-    port's config), the weights (raw and as the port's parameters), the mix
-    and its request stream, and the window's clock."""
+    """What an entry needs: the configuration (Hugging Face dict, its
+    architecture module ``arch``, sizes, the port's config), the weights
+    (raw and as the port's parameters), the mix and its request stream, and
+    the window's clock."""
 
     def __init__(self, cfg_file: dict, mix: dict, seed: int, seconds: float, trace: bool,
                  device: str, t_start: float):
         self.cfg_file = cfg_file
         self.cfg = cfg_file["config"]
-        self.d = weights.dims(self.cfg)
+        self.arch = load_arch(cfg_file)
+        self.d = self.arch.dims(self.cfg)
         self.mix = mix
         self.seconds = seconds
         self.trace = trace
         self.device = device
         self.t_start = t_start
-        self.raw = weights.draw(self.cfg, seed, device)
-        self.params = weights.port_params(self.raw)
-        self.pcfg = weights.port_config(self.cfg)
+        self.raw = self.arch.draw(self.cfg, seed, device)
+        self.params = self.arch.port_params(self.raw)
+        self.pcfg = self.arch.port_config(self.cfg)
         self.specs = generator.stream(mix, cfg_file["token_ids"], seed)
-        self.rec = Recorder(self.d) if trace else None
+        self.rec = Recorder(self.d, self.arch) if trace else None
         self.tracer: Optional[Tracer] = None
         if trace:
             self.rec.install()
@@ -365,7 +417,8 @@ class Context:
         if self.tracer is None or self.tracer.prof is None:
             return None
         self.tracer.stop()
-        return dict(self.tracer.read(), k1=self.rec.k1, attn=self.rec.attn,
+        calls = self.rec.calls
+        return dict(self.tracer.read(), k1=calls["k1"], attn=calls["attn"], calls=calls,
                     forward_s=self.rec.forward_s)
 
 
@@ -419,7 +472,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
         v = readers[m["name"]].read(run)
         if v is not None:
             values[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    numbers = check.check(ctx.cfg, ctx.raw, run, mix, limits, seed)
+    numbers = check.check(ctx.arch, ctx.cfg, ctx.raw, run, mix, limits, seed)
     correct = check.verdict(numbers)
     traffic = generator.describe([r.spec for r in run.requests if run.in_window(r)])
     result = {"correct": correct, "attempted": run.attempted(), "failed": run.failed(),

@@ -16,8 +16,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 Q4_0_BLOCK = 32                     # weights a q4_0 scale covers
 
-# the port's kernels by the names its CUDA sources give them
-K1_KERNELS = ("qmm_tc_kernel",)
+# the port's kernels by the names its CUDA sources give them: K1's every
+# body (qmm_tc_kernel, qmm_tc_kernel_decode) and any later one of its family
+K1_KERNELS = ("qmm_",)
 ATTN_KERNELS = ("flash_decode_split_kernel", "flash_prefill_kernel")
 
 

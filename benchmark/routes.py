@@ -5,8 +5,9 @@ While installed, the record keeps the output of the router projection of
 every MoE layer of every forward that an entry has announced (``begin``):
 the (B, T, experts) f32 logits the program computed, held as they are (no
 copy, no launch, no host read). The router is found by identity: the
-projection whose weight is a layer's ``router``, passed through
-``models.llama.matmul``. After the run ``of`` gives, for every position of
+projection whose weight is a layer's ``router``, passed through the
+function that the architecture module names as its ``router_site``
+(``(module, name)``). After the run ``of`` gives, for every position of
 one request (BOS and prompt from its prefill, each served token from the
 decode step that fed it), the router's logits and what they choose by the
 program's rule: the experts (softmax over the experts, the top k) and
@@ -20,14 +21,16 @@ An entry says which rows of the forward hold which request (``begin``):
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 
 class Routes:
-    def __init__(self, params: dict, k: int):
+    def __init__(self, params: dict, k: int, site: Tuple[str, str]):
         self.k = k
+        self.site = site
         self.layer_of = {id(lp["router"]): i for i, lp in enumerate(params["layers"])
                          if "router" in lp}
         self.n_layers = len(params["layers"])
@@ -40,9 +43,9 @@ class Routes:
     # -- while the program runs ------------------------------------------------
 
     def install(self) -> None:
-        from tpu_llm_torch.models import llama as M
-
-        rec, orig = self, M.matmul
+        module, name = self.site
+        mod = importlib.import_module(module)
+        rec, orig = self, getattr(mod, name)
         self._orig = orig
 
         def matmul(x, w, out_dtype=None, row_scale=None):
@@ -52,13 +55,13 @@ class Routes:
                 rec._now[i] = y
             return y
 
-        M.matmul = matmul
+        setattr(mod, name, matmul)
 
     def uninstall(self) -> None:
-        from tpu_llm_torch.models import llama as M
-
         if self._orig is not None:
-            M.matmul, self._orig = self._orig, None
+            module, name = self.site
+            setattr(importlib.import_module(module), name, self._orig)
+            self._orig = None
         self._now = None
 
     def begin(self, rows: list) -> None:

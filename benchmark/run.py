@@ -7,9 +7,9 @@ sees, and print its result as the last line of standard output:
 per-layer metrics (``BENCHMARK.json``). The drawn traffic is printed on the
 line before the result; the numbers that decide ``correct`` are the last
 lines of standard error and the last key of the result. Exits non-zero,
-printing no result, without a CUDA card (or with fewer than the cell
-asks for), without the program, or when JAX or the JAX package was
-loaded.
+printing no result, when the cell's configuration names no architecture
+module (``arch``), without a CUDA card (or with fewer than the cell asks
+for), without the program, or when JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -54,6 +54,14 @@ def main(argv=None) -> int:
         print(f"run.py: no workload {args.workload!r} in BENCHMARK.json ({e!r})",
               file=sys.stderr)
         return 2
+    from benchmark import harness
+
+    files = harness.cell_files(bench, args.workload)
+    try:
+        harness.load_arch(files[0])
+    except harness.ArchError as e:
+        print(f"run.py: {e}", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
@@ -66,10 +74,8 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"run.py: the program tpu_llm_torch is missing ({e})", file=sys.stderr)
         return 2
-    from benchmark import harness
-
     result, traffic = harness.run_cell(bench, args.workload, args.seed, args.seconds,
-                                       bool(args.trace), "cuda", T_START)
+                                       bool(args.trace), "cuda", T_START, files)
     bad = loaded_forbidden()
     if bad:
         print(f"run.py: JAX or the JAX package was loaded: {', '.join(bad)}", file=sys.stderr)

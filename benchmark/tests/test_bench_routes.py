@@ -20,6 +20,7 @@ from benchmark.reference import model as reference
 from benchmark.routes import Routes
 
 SEED = 2 ** 31 + 23
+SITE = harness.load_arch(tiny_cells.tiny_config("mixtral-8x7b")).router_site
 
 
 def moe_config(experts: int = 8) -> dict:
@@ -62,7 +63,7 @@ def forward_once(cfg, params, B, T):
 def test_record_holds_the_experts_the_ffn_used(B, T):
     cfg = moe_config()
     params = weights.port_params(weights.draw(cfg, SEED, "cpu"))
-    rec = Routes(params, cfg["num_experts_per_tok"])
+    rec = Routes(params, cfg["num_experts_per_tok"], SITE)
     rec.install()
     try:
         rec.begin([(b, b, 0, T) for b in range(B)])
@@ -92,7 +93,7 @@ def test_record_is_off_until_installed_and_after():
 
     cfg = moe_config()
     params = weights.port_params(weights.draw(cfg, SEED, "cpu"))
-    rec = Routes(params, 2)
+    rec = Routes(params, 2, SITE)
     rec.begin([(0, 0, 0, 2)])
     forward_once(cfg, params, 1, 2)
     assert M.matmul is linear.matmul
@@ -105,7 +106,7 @@ def test_record_is_off_until_installed_and_after():
 def test_dense_forward_leaves_the_record_empty():
     cfg = tiny_cells.tiny_config("qwen2-7b")["config"]
     params = weights.port_params(weights.draw(cfg, SEED, "cpu"))
-    rec = Routes(params, 2)
+    rec = Routes(params, 2, SITE)
     assert rec.layer_of == {}
     rec.install()
     try:
@@ -141,7 +142,8 @@ def test_reference_following_its_own_routes_is_unchanged():
 
 def test_dense_numbers_are_the_plain_references():
     run, ctx, mix = tiny_run("qwen2-7b.chat-scan")
-    got = check.judged(ctx.cfg, ctx.raw, run, mix, tiny_cells.TINY_LIMIT, SEED, ("fp8",))
+    got = check.judged(ctx.arch, ctx.cfg, ctx.raw, run, mix, tiny_cells.TINY_LIMIT, SEED,
+                       ("fp8",))
     reqs = check.sample(run, mix["check"]["served_tokens"], SEED)
     seqs, spans, served = check.sequences(reqs, int(ctx.cfg["bos_token_id"]))
     ref = reference.logits_at(ctx.cfg, ctx.raw, seqs, spans, "f32")
@@ -168,7 +170,7 @@ def tiny_run(workload, seed=SEED, params_fn=None):
 
 
 def numbers(run, ctx, mix, seed=SEED):
-    return check.check(ctx.cfg, ctx.raw, run, mix, tiny_cells.TINY_LIMIT, seed)
+    return check.check(ctx.arch, ctx.cfg, ctx.raw, run, mix, tiny_cells.TINY_LIMIT, seed)
 
 
 def test_sound_moe_run_passes_every_number():
